@@ -1,0 +1,353 @@
+// K1: fused dense cosine top-k for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel tpurag/kernels/dense.py:dense_topk_pallas
+// (body _dense_topk_kernel). Same contract: (B, k) float32 scores
+// descending and int32 ids, ties to the smaller id, corpus rows at or past
+// n_valid never returned, empty slots (NEG_INF, -1), fp32 accumulation of
+// a product taken in the corpus dtype (bf16 or fp32).
+//
+// What bounds it on this card: at the main-path shape (B = 1024 queries,
+// N = 100k rows, D = 1024, bf16) the product is 0.2 TFLOP and the corpus
+// 205 MB, so the kernel wants the tensor cores and must never write the
+// (B, N) score matrix (400 MB of fp32) to device memory.
+//
+// Design:
+// - The TPU grid carried one running top-k sequentially across corpus
+//   tiles. Hopper blocks run in parallel and in no order, so the corpus
+//   is cut into S splits: block (query tile, split) scans its own split
+//   with its own running lists and writes them to a (B, S, k) scratch;
+//   a second small kernel merges the S*k candidates of each query.
+// - A block holds TQ = 64 queries x TN = 128 corpus rows. The product
+//   runs through shared memory in 64-wide slices of D: bf16 on the tensor
+//   cores with WMMA (mma.sync, 16x16x16 fragments, fp32 accumulators);
+//   fp32 corpora with plain FMA. The fp32 score tile lands in shared
+//   memory, and each warp folds its rows into their running lists.
+// - A running list is k (value, id) pairs kept descending in shared
+//   memory (global scratch when 64 lists of k do not fit). A score enters
+//   only if it beats the list's k-th entry; the warp then inserts the best
+//   candidate and re-checks against the new k-th, so once the lists are
+//   warm almost every tile costs one compare per score. Any k works.
+// - Later work: TMA + wgmma with a ring of tiles, and an early skip of a
+//   tile whose maximum cannot enter any list.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include "topk.cuh"
+
+namespace {
+
+constexpr int TQ = 64;        // queries per block
+constexpr int TN = 128;       // corpus rows per tile
+constexpr int TD = 64;        // D slice staged in shared memory
+constexpr int THREADS = 256;  // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int LDS = TN + 4;   // score tile row stride (floats)
+constexpr int BIG_ID = 1 << 30;
+constexpr int MAX_SMEM = 232448;  // 227 KB: Hopper's per-block limit
+constexpr int MERGE_THREADS = 128;
+
+template <typename T>
+struct Stage;
+template <>
+struct Stage<__nv_bfloat16> {
+  static constexpr int LD = TD + 8;  // 144-byte rows: 16 B aligned, skewed
+};
+template <>
+struct Stage<float> {
+  static constexpr int LD = TD + 4;
+};
+
+template <typename T>
+constexpr size_t tile_bytes() {
+  return (size_t)(TQ + TN) * Stage<T>::LD * sizeof(T) +
+         (size_t)TQ * LDS * sizeof(float);
+}
+
+__device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
+  x = __float2bfloat16(0.f);
+}
+
+// Stage rows [row0, row0 + rows) x columns [d0, d0 + TD) of a row-major
+// (n_rows, D) matrix into shared memory (stride LD), zero past the edges.
+template <typename T>
+__device__ void stage_slice(T* dst, const T* src, int rows, int row0,
+                            int n_rows, int d0, int D, bool vec) {
+  constexpr int LD = Stage<T>::LD;
+  if (vec) {  // D is a multiple of 16 bytes and src is 16-byte aligned
+    constexpr int VEC = 16 / sizeof(T);
+    constexpr int PER_ROW = TD / VEC;
+    for (int e = threadIdx.x; e < rows * PER_ROW; e += THREADS) {
+      const int r = e / PER_ROW;
+      const int c = (e % PER_ROW) * VEC;
+      const int gr = row0 + r;
+      const int gc = d0 + c;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < n_rows && gc < D)
+        val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + gc);
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * TD; e += THREADS) {
+      const int r = e / TD;
+      const int c = e % TD;
+      const int gr = row0 + r;
+      const int gc = d0 + c;
+      T val;
+      set_zero(val);
+      if (gr < n_rows && gc < D) val = src[(size_t)gr * D + gc];
+      dst[r * LD + c] = val;
+    }
+  }
+}
+
+// Score tile sc[TQ][LDS] = q[q0 : q0+TQ] . emb[n0 : n0+TN]^T in fp32.
+__device__ void score_tile(const __nv_bfloat16* q, const __nv_bfloat16* emb,
+                           int B, int N, int D, int q0, int n0, bool vec,
+                           __nv_bfloat16* qs, __nv_bfloat16* es, float* sc) {
+  using namespace nvcuda;
+  constexpr int LD = Stage<__nv_bfloat16>::LD;
+  const int warp = threadIdx.x >> 5;
+  const int wr = (warp / 4) * 32;  // this warp's 32 x 32 block of the tile
+  const int wc = (warp % 4) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int d0 = 0; d0 < D; d0 += TD) {
+    __syncthreads();  // the previous slice is no longer read
+    stage_slice(qs, q, TQ, q0, B, d0, D, vec);
+    stage_slice(es, emb, TN, n0, N, d0, D, vec);
+    __syncthreads();
+    for (int kk = 0; kk < TD; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major> b[2];
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], qs + (wr + i * 16) * LD + kk, LD);
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], es + (wc + j * 16) * LD + kk, LD);
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(sc + (wr + i * 16) * LDS + wc + j * 16,
+                              acc[i][j], LDS, wmma::mem_row_major);
+  __syncthreads();
+}
+
+__device__ void score_tile(const float* q, const float* emb, int B, int N,
+                           int D, int q0, int n0, bool vec, float* qs,
+                           float* es, float* sc) {
+  constexpr int LD = Stage<float>::LD;
+  const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
+  const int tx = threadIdx.x % 16;  // cols tx + 16*j, j < 8
+  float acc[4][8];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += TD) {
+    __syncthreads();
+    stage_slice(qs, q, TQ, q0, B, d0, D, vec);
+    stage_slice(es, emb, TN, n0, N, d0, D, vec);
+    __syncthreads();
+    for (int d = 0; d < TD; ++d) {
+      float a[4], b[8];
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
+      for (int j = 0; j < 8; ++j) b[j] = es[(tx + 16 * j) * LD + d];
+      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j)
+      sc[(ty * 4 + i) * LDS + tx + 16 * j] = acc[i][j];
+  __syncthreads();
+}
+
+// grid (cdiv(B, TQ), S). Block (x, s) scans corpus tiles of split s for
+// queries [x*TQ, x*TQ + TQ) and leaves each query's top-k of that split
+// in part[(query * S + s) * k : ... + k].
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    dense_scan_kernel(const T* __restrict__ q, const T* __restrict__ emb,
+                      int B, int N, int D, int n_valid, int k, int S,
+                      bool vec, bool lists_in_smem, float* part_v,
+                      int* part_i) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LD = Stage<T>::LD;
+  T* qs = reinterpret_cast<T*>(smem);
+  T* es = qs + TQ * LD;
+  float* sc = reinterpret_cast<float*>(es + TN * LD);
+  float* slv = sc + TQ * LDS;
+  int* sli = reinterpret_cast<int*>(slv + TQ * k);
+
+  const int q0 = blockIdx.x * TQ;
+  const int s = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = (n_valid + TN - 1) / TN;
+  const int per_split = (n_tiles + S - 1) / S;
+  const int t_begin = s * per_split;
+  const int t_end = min(n_tiles, t_begin + per_split);
+
+  auto list_v = [&](int r) -> float* {
+    return lists_in_smem ? slv + r * k
+                         : part_v + ((size_t)(q0 + r) * S + s) * k;
+  };
+  auto list_i = [&](int r) -> int* {
+    return lists_in_smem ? sli + r * k
+                         : part_i + ((size_t)(q0 + r) * S + s) * k;
+  };
+
+  for (int r = warp; r < TQ && q0 + r < B; r += WARPS)
+    tr::warp_list_init(list_v(r), list_i(r), k, BIG_ID);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int n0 = t * TN;
+    score_tile(q, emb, B, N, D, q0, n0, vec, qs, es, sc);
+    for (int r = warp; r < TQ && q0 + r < B; r += WARPS) {
+      float* lv = list_v(r);
+      int* li = list_i(r);
+      float kv = lv[k - 1];
+      int ki = li[k - 1];
+      float v[TN / 32];
+      int id[TN / 32];
+      bool cand[TN / 32];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < TN / 32; ++j) {
+        id[j] = n0 + lane + 32 * j;
+        v[j] = sc[r * LDS + lane + 32 * j];
+        cand[j] = id[j] < n_valid && tr::lex_gt(v[j], id[j], kv, ki);
+        any |= cand[j];
+      }
+      while (__any_sync(tr::kFullMask, any)) {
+        float bv = -INFINITY;
+        int bi = tr::kIntMax;
+#pragma unroll
+        for (int j = 0; j < TN / 32; ++j)
+          if (cand[j] && tr::lex_gt(v[j], id[j], bv, bi)) {
+            bv = v[j];
+            bi = id[j];
+          }
+        int unused = 0;
+        tr::warp_lex_max3(bv, bi, unused);
+        tr::warp_list_insert(lv, li, k, bv, bi);
+        kv = lv[k - 1];
+        ki = li[k - 1];
+        any = false;
+#pragma unroll
+        for (int j = 0; j < TN / 32; ++j) {
+          cand[j] = cand[j] && id[j] != bi && tr::lex_gt(v[j], id[j], kv, ki);
+          any |= cand[j];
+        }
+      }
+    }
+  }
+
+  if (lists_in_smem) {
+    __syncwarp();
+    for (int r = warp; r < TQ && q0 + r < B; r += WARPS) {
+      const size_t out = ((size_t)(q0 + r) * S + s) * k;
+      for (int j = lane; j < k; j += 32) {
+        part_v[out + j] = slv[r * k + j];
+        part_i[out + j] = sli[r * k + j];
+      }
+    }
+  }
+}
+
+// One block per query: the top-k of its S*k split candidates, with
+// sentinel ids and NEG_INF slots mapped to -1.
+__global__ void __launch_bounds__(MERGE_THREADS)
+    dense_merge_kernel(const float* __restrict__ part_v,
+                       const int* __restrict__ part_i, int S, int k,
+                       float* out_v, int* out_i) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red_v[32];
+  __shared__ int red_i[32];
+  __shared__ int red_p[32];
+  const int m = S * k;
+  float* cv = reinterpret_cast<float*>(smem);
+  int* ci = reinterpret_cast<int*>(cv + m);
+  const size_t row = blockIdx.x;
+  for (int e = threadIdx.x; e < m; e += blockDim.x) {
+    cv[e] = part_v[row * m + e];
+    ci[e] = part_i[row * m + e];
+  }
+  __syncthreads();
+  for (int p = 0; p < k; ++p) {
+    float bv = -INFINITY;
+    int bi = tr::kIntMax;
+    int bp = tr::kIntMax;
+    for (int e = threadIdx.x; e < m; e += blockDim.x)
+      if (tr::lex_gt3(cv[e], ci[e], e, bv, bi, bp)) {
+        bv = cv[e];
+        bi = ci[e];
+        bp = e;
+      }
+    tr::block_lex_max3(bv, bi, bp, red_v, red_i, red_p);
+    if (threadIdx.x == 0) {
+      const bool empty = bi >= BIG_ID || bv <= tr::kNegInf / 2;
+      out_v[row * k + p] = bv;
+      out_i[row * k + p] = empty ? -1 : bi;
+      cv[bp] = -INFINITY;  // taken: sorts after everything
+      ci[bp] = tr::kIntMax;
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+cudaError_t launch_dense(const void* q, const void* emb, int B, int N, int D,
+                         int n_valid, int k, int S, float* part_v,
+                         int* part_i, cudaStream_t stream) {
+  const size_t lists = (size_t)TQ * k * (sizeof(float) + sizeof(int));
+  const bool lists_in_smem = tile_bytes<T>() + lists <= (size_t)MAX_SMEM;
+  const size_t smem = tile_bytes<T>() + (lists_in_smem ? lists : 0);
+  const bool vec = (D * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(emb) % 16 == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + TQ - 1) / TQ, S);
+  dense_scan_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(emb), B, N, D, n_valid,
+      k, S, vec, lists_in_smem, part_v, part_i);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tr_dense_topk(const void* q, const void* emb, int dtype, int B,
+                             int N, int D, int n_valid, int k, int S,
+                             float* part_v, int* part_i, float* out_v,
+                             int* out_i, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      dtype == 1 ? launch_dense<__nv_bfloat16>(q, emb, B, N, D, n_valid, k, S,
+                                               part_v, part_i, st)
+                 : launch_dense<float>(q, emb, B, N, D, n_valid, k, S, part_v,
+                                       part_i, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t merge_smem = (size_t)S * k * (sizeof(float) + sizeof(int));
+  err = cudaFuncSetAttribute(dense_merge_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)merge_smem);
+  if (err != cudaSuccess) return (int)err;
+  dense_merge_kernel<<<B, MERGE_THREADS, merge_smem, st>>>(part_v, part_i, S,
+                                                           k, out_v, out_i);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* tr_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,125 @@
+// Running top-k device functions shared by the kernels.
+//
+// Port of the JAX package's running top-k helpers (tpurag/kernels/topk.py:
+// init_run_asc, fold_candidates_asc, merge_topk_cols_asc, emit_desc and the
+// _lex_gt order). On the TPU they are vector ops over a transposed (k, tile)
+// running set; here each query's running top-k is a short descending list
+// owned by one warp, and a candidate enters it by a warp-wide insert.
+//
+// Order everywhere: value descending, ties to the smaller id.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace tr {
+
+constexpr float kNegInf = -3.0e38f;  // NEG_INF of both packages
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kIntMax = 0x7fffffff;
+
+// (va, ia) sorts strictly before (vb, ib).
+__device__ __forceinline__ bool lex_gt(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// Same, with a third key (a position) so equal (value, id) pairs still
+// have one winner.
+__device__ __forceinline__ bool lex_gt3(float va, int ia, int pa, float vb,
+                                        int ib, int pb) {
+  return va > vb || (va == vb && (ia < ib || (ia == ib && pa < pb)));
+}
+
+// Warp-wide lexicographic max of (v, id, pos); every lane ends with it.
+__device__ __forceinline__ void warp_lex_max3(float& v, int& id, int& pos) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFullMask, v, off);
+    const int oi = __shfl_xor_sync(kFullMask, id, off);
+    const int op = __shfl_xor_sync(kFullMask, pos, off);
+    if (lex_gt3(ov, oi, op, v, id, pos)) {
+      v = ov;
+      id = oi;
+      pos = op;
+    }
+  }
+}
+
+// Block-wide lexicographic max of (v, id, pos); every thread ends with it.
+// blockDim.x must be a multiple of 32; every thread of the block calls it.
+// scratch: three arrays of 32 entries in shared memory.
+__device__ __forceinline__ void block_lex_max3(float& v, int& id, int& pos,
+                                               float* sv, int* si, int* sp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  warp_lex_max3(v, id, pos);
+  if (lane == 0) {
+    sv[warp] = v;
+    si[warp] = id;
+    sp[warp] = pos;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < n_warps ? sv[lane] : -INFINITY;
+    id = lane < n_warps ? si[lane] : kIntMax;
+    pos = lane < n_warps ? sp[lane] : kIntMax;
+    warp_lex_max3(v, id, pos);
+    if (lane == 0) {
+      sv[0] = v;
+      si[0] = id;
+      sp[0] = pos;
+    }
+  }
+  __syncthreads();
+  v = sv[0];
+  id = si[0];
+  pos = sp[0];
+  __syncthreads();  // the scratch is free again for the next call
+}
+
+// Empty running list: NEG_INF values with distinct sentinel ids
+// big_id + j, which sort after every real candidate.
+__device__ __forceinline__ void warp_list_init(float* lv, int* li, int k,
+                                               int big_id) {
+  for (int j = threadIdx.x & 31; j < k; j += 32) {
+    lv[j] = kNegInf;
+    li[j] = big_id + j;
+  }
+  __syncwarp();
+}
+
+// Insert (v, id) into the descending list lv/li of length k (shared or
+// global memory), dropping its last entry. The caller has checked that
+// (v, id) sorts before lv[k-1]; ids in the list are distinct. All 32
+// lanes of the warp call it.
+__device__ __forceinline__ void warp_list_insert(float* lv, int* li, int k,
+                                                 float v, int id) {
+  const int lane = threadIdx.x & 31;
+  int pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int j = base + lane;
+    const bool before = j < k && lex_gt(lv[j], li[j], v, id);
+    pos += __popc(__ballot_sync(kFullMask, before));
+  }
+  // Shift [pos, k - 1) up by one slot, highest chunk first, so every read
+  // of slot j - 1 happens before that slot is overwritten.
+  for (int base = ((k - 1) >> 5) << 5; base >= 0; base -= 32) {
+    const int j = base + lane;
+    const bool write = j < k && j >= pos;
+    float nv = v;
+    int ni = id;
+    if (write && j > pos) {
+      nv = lv[j - 1];
+      ni = li[j - 1];
+    }
+    __syncwarp();
+    if (write) {
+      lv[j] = nv;
+      li[j] = ni;
+    }
+    __syncwarp();
+  }
+}
+
+}  // namespace tr

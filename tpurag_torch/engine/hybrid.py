@@ -1,0 +1,79 @@
+# Ported from tpurag/engine/hybrid.py.
+"""Hybrid (dense + keyword) retrieval with RRF fusion.
+
+Mirrors hybridSearch (src/lib/hybrid-search.ts:275-362):
+  1. dense cosine top-k, then drop hits below the preset's min vector score;
+  2. BM25 keyword top-k, gated off per query when even its best hit
+     covers under min_keyword_coverage of the query's idf mass;
+  3. reciprocal-rank fusion with preset weights / rrf_k / both-bonus;
+  4. cut to final_top_k.
+
+Both legs and the fusion stay on the indexes' device; the only host
+transfer is the final (scores, ids, bits) triple.
+
+Source bit layout in the returned mask: bit 0 = vector, bit 1 = keyword.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpurag_torch.core.config import HybridPreset
+from tpurag_torch.index.dense import DenseIndex
+from tpurag_torch.index.inverted import InvertedIndex
+from tpurag_torch.kernels.fusion import rrf_fuse
+from tpurag_torch.kernels.runtime import NEG_INF
+
+SOURCE_BITS = ("vector", "keyword")
+
+
+def apply_min_score(scores, ids, min_score: float):
+    """Invalidate candidates below the cosine threshold (pre-RRF filter)."""
+    keep = scores >= min_score
+    return torch.where(keep, scores, NEG_INF), torch.where(keep, ids, -1)
+
+
+def hybrid_search(
+    dense: DenseIndex,
+    inverted: InvertedIndex | None,
+    query_vecs,
+    query_texts: list[str],
+    preset: HybridPreset,
+):
+    """Batch hybrid search.
+
+    Returns (scores, ids, src_bits), (B, final_top_k) tensors on the
+    indexes' device, queued but not waited for; empty slots are
+    (NEG_INF, -1, 0)."""
+    v_scores, v_ids = dense.search(query_vecs, preset.vector_top_k)
+    v_scores, v_ids = apply_min_score(v_scores, v_ids, preset.min_vector_score)
+
+    if inverted is not None and len(inverted) > 0:
+        k_scores, k_ids = inverted.search(query_texts, preset.keyword_top_k,
+                                          as_device=True)
+        if (preset.min_keyword_coverage > 0.0
+                and not inverted.config.rank_compat_scores):
+            # Keyword-leg confidence gate (see HybridPreset); rank-compat
+            # pseudo-scores carry no match mass, so it gates true BM25 only.
+            mass = torch.as_tensor(inverted.query_idf_mass(query_texts),
+                                   device=k_scores.device)
+            best = k_scores.amax(dim=1, keepdim=True)
+            confident = best >= preset.min_keyword_coverage * mass[:, None]
+            k_ids = torch.where(confident, k_ids, -1)
+    else:
+        # Keyword index unavailable -> vector-only degradation
+        # (reference: hybrid-search.ts:322-330).
+        k_ids = torch.full((v_ids.shape[0], preset.keyword_top_k), -1,
+                           dtype=torch.int32, device=v_ids.device)
+
+    return rrf_fuse(
+        (v_ids, k_ids),
+        weights=(preset.vector_weight, preset.keyword_weight),
+        final_k=preset.final_top_k,
+        rrf_k=preset.rrf_k,
+        both_bonus=preset.both_bonus,
+    )
+
+
+def decode_bits(bits: int, names: tuple[str, ...] = SOURCE_BITS) -> tuple[str, ...]:
+    return tuple(n for i, n in enumerate(names) if bits & (1 << i))

@@ -1,0 +1,554 @@
+# Ported from tpurag/index/inverted.py (narrow-query path, single device).
+"""Inverted index (keyword search).
+
+Host side: vocabulary + per-term postings accumulated incrementally.
+
+Device layout (same as the JAX package):
+- postings live in per-width BUCKET MATRICES on the index's device: each
+  term's doc-sorted postings (+ build-time precomputed BM25 impacts)
+  occupy one row of the (n_terms_w + 1, w) matrix for its power-of-two
+  width bucket, padded with doc=2^30 / impact=0; row 0 is the pad row;
+- queries are width-classed: each query runs at the max bucket width of
+  its own terms, rounded up to BM25Config.width_ladder;
+- scoring tail = bitonic merge + T-window segment sum + top-k, the fused
+  kernel of kernels/bm25_merge.py (CUDA kernel on the card, its plain
+  version on the CPU); rows wider than its limit take
+  kernels/bm25.segsum_topk_candidates.
+
+Mutability: adds after the first build land in a TAIL segment; deletes
+tombstone ids (candidate overfetch + filter); compact() rebuilds. Queries
+with a term whose bucket is wider than ``wide_term_width`` (the JAX
+package's exact narrow+wide combine) are not ported yet and raise.
+
+save/load use the JAX package's ``.npz`` format.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import pathlib
+import re
+import threading
+
+import numpy as np
+import torch
+
+from tpurag_torch.core.config import BM25Config
+from tpurag_torch.ingest.tokenizer import tokenize, tokenize_query
+from tpurag_torch.kernels.bm25 import rank_compat, segsum_topk_candidates
+from tpurag_torch.kernels.bm25_merge import merge_ok, merge_segsum_topk
+from tpurag_torch.kernels.runtime import NEG_INF, round_up
+from tpurag_torch.kernels.topk import merge_topk
+
+_BIG = 2**30
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(x - 1, 1).bit_length() if x > 2 else max(x, 1)
+
+
+def packed_cbits(n_docs: int, enabled: bool = True) -> int:
+    """Contribution bits for the packed merge (kernels/bm25_merge.py):
+    31 - doc-id bits, 0 (= unpacked) when fewer than 12 bits remain."""
+    if not enabled:
+        return 0
+    c = 31 - max(int(n_docs) + 1, 2).bit_length()
+    return c if c >= 12 else 0
+
+
+def _assemble(bucketw, rowid, idf, mats, p_max: int, t: int, widths):
+    """Gather (g, t, p_max) candidate (doc, idf*impact) tensors from the
+    bucket matrices: each term slot's P-block plain doc-ascending,
+    invalid lanes parked at doc=2^30 / contribution 0. bucketw/rowid/idf
+    are (g, t) tensors on the matrices' device; `widths` lists only the
+    buckets some slot uses."""
+    g = bucketw.shape[0]
+    dev = bucketw.device
+    doc = torch.full((g, t, p_max), _BIG, dtype=torch.int32, device=dev)
+    con = torch.zeros((g, t, p_max), dtype=torch.float32, device=dev)
+    for w, (doc_mat, imp_mat) in zip(widths, mats):
+        if w > p_max:
+            continue
+        mask = bucketw == w
+        rows = torch.where(mask, rowid, 0).long()
+        d = doc_mat[rows]                                # (g, t, w)
+        im = imp_mat[rows]
+        if w < p_max:
+            d = torch.nn.functional.pad(d, (0, p_max - w), value=_BIG)
+            im = torch.nn.functional.pad(im, (0, p_max - w))
+        doc = torch.where(mask[:, :, None], d, doc)
+        con = torch.where(mask[:, :, None], im, con)
+    con = idf[:, :, None] * con
+    return doc, con
+
+
+def _bucket_score(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
+                  layout: "_Layout", k: int, p_max: int, t: int,
+                  cbits: int = 0):
+    """Assemble (g, t, p_max) candidates from the bucket matrices by row
+    gather, apply idf, flip odd term slots, and run the scoring tail.
+
+    bucketw/rowid/idf: (g, t) host arrays per query-term slot (bucketw 0
+    = empty slot)."""
+    used = set(np.unique(bucketw).tolist())
+    pairs = [(w, m) for w, m in zip(layout.widths, layout.mats) if w in used]
+    dev = layout.device
+    doc, con = _assemble(torch.as_tensor(bucketw, device=dev),
+                         torch.as_tensor(rowid, device=dev),
+                         torch.as_tensor(idf, device=dev),
+                         [m for _, m in pairs], p_max, t,
+                         [w for w, _ in pairs])
+    g = bucketw.shape[0]
+    if t > 1:
+        # Flip odd term slots so each 2P block is bitonic for the merge.
+        x4 = doc.reshape(g, t // 2, 2, p_max)
+        doc = torch.stack([x4[:, :, 0], x4[:, :, 1].flip(-1)], dim=2)
+        x4 = con.reshape(g, t // 2, 2, p_max)
+        con = torch.stack([x4[:, :, 0], x4[:, :, 1].flip(-1)], dim=2)
+    doc = doc.reshape(g, t * p_max).contiguous()
+    con = con.reshape(g, t * p_max).contiguous()
+    if merge_ok(t * p_max):
+        return merge_segsum_topk(doc, con, k=k,
+                                 p=p_max if t > 1 else t * p_max, t=t,
+                                 cbits=cbits)
+    return segsum_topk_candidates(doc, con, k=k)
+
+
+@dataclasses.dataclass
+class _Layout:
+    """One device-resident postings segment."""
+
+    widths: tuple
+    mats: tuple               # ((doc, imp) tensor pairs) aligned with widths
+    term_bucket: np.ndarray   # (V,) int32 bucket width, 0 = term absent
+    term_row: np.ndarray      # (V,) int32 row index (0 = pad row)
+    device: torch.device
+    nnz: int = 0
+
+
+def highlight(text: str, query_tokens: list[str],
+              mark: str = "**") -> str:
+    """Wrap query-term matches in `mark` (meilisearch.ts:222-233
+    _formatted content with highlightPreTag/PostTag)."""
+    toks = sorted({t for t in query_tokens if t}, key=len, reverse=True)
+    if not toks:
+        return text
+    pat = re.compile("|".join(re.escape(t) for t in toks), re.IGNORECASE)
+    return pat.sub(lambda m: f"{mark}{m.group(0)}{mark}", text)
+
+
+class InvertedIndex:
+    # Auto-compaction policy (tail/delete growth bounds).
+    TAIL_COMPACT_RATIO = 0.25
+    TAIL_COMPACT_MIN = 4096
+    DEAD_COMPACT_RATIO = 0.10
+    DEAD_COMPACT_MIN = 64
+
+    def __init__(self, config: BM25Config | None = None, device="cuda"):
+        self.config = config or BM25Config()
+        self.device = torch.device(device)
+        self.vocab: dict[str, int] = {}
+        self._postings_doc: list[list[int]] = []   # per-term doc ids
+        self._postings_tf: list[list[int]] = []    # per-term frequencies
+        self.doc_len: list[int] = []               # tokens per doc id
+        self.n_docs = 0                            # live docs
+        self._total_tokens = 0                     # live token count
+        self._main: _Layout | None = None
+        self._main_count: list[int] = []  # per-term postings in main
+        self._tail: _Layout | None = None
+        self._tail_nnz = 0
+        self._dead: set[int] = set()      # deleted ids still in layouts
+        self._builds = 0                  # full compactions (observable)
+        # Searches are reads under the KB's RWLock, but a read can
+        # trigger the lazy compaction: single-flight it.
+        self._build_lock = threading.Lock()
+
+    # -- build ---------------------------------------------------------------
+
+    def add(self, doc_id: int, text: str) -> None:
+        """Index one document under external integer id `doc_id` (the
+        dense-index row id, so RRF fusion matches candidates by id)."""
+        counts: dict[str, int] = {}
+        for tok in tokenize(text):
+            counts[tok] = counts.get(tok, 0) + 1
+        total = 0
+        for term, c in counts.items():
+            tid = self.vocab.get(term)
+            if tid is None:
+                tid = len(self.vocab)
+                self.vocab[term] = tid
+                self._postings_doc.append([])
+                self._postings_tf.append([])
+                self._main_count.append(0)
+            self._postings_doc[tid].append(doc_id)
+            self._postings_tf[tid].append(c)
+            total += c
+        while len(self.doc_len) <= doc_id:
+            self.doc_len.append(0)
+        self.doc_len[doc_id] = total
+        self.n_docs += 1
+        self._total_tokens += total
+        if self._main is not None:
+            self._tail_nnz += len(counts)
+            self._tail = None  # lazily rebuilt (O(tail_nnz))
+
+    def add_batch(self, ids, texts) -> None:
+        for i, t in zip(ids, texts):
+            self.add(int(i), t)
+
+    def delete_doc(self, doc_id: int) -> None:
+        """Tombstone one document. Search overfetches past dead ids until
+        the next compaction physically drops the postings."""
+        doc_id = int(doc_id)
+        if doc_id in self._dead or doc_id >= len(self.doc_len):
+            return
+        self._dead.add(doc_id)
+        self.n_docs = max(self.n_docs - 1, 0)
+        self._total_tokens -= self.doc_len[doc_id]
+
+    def delete_docs(self, ids) -> None:
+        for i in np.atleast_1d(ids):
+            self.delete_doc(int(i))
+
+    @property
+    def _avgdl(self) -> float:
+        return max(self._total_tokens / max(self.n_docs, 1), 1.0)
+
+    def _dnorm(self) -> np.ndarray:
+        n = len(self.doc_len)
+        dl = np.asarray(self.doc_len, np.float32) if n else np.zeros(
+            1, np.float32)
+        k1, b = self.config.k1, self.config.b
+        return np.maximum(k1 * (1.0 - b + b * dl / self._avgdl), 1e-6)
+
+    def _build_layout(self, ranges: list[tuple[int, int]]) -> _Layout:
+        """Build one segment layout from per-term posting ranges (one flat
+        scatter per width bucket; postings arrive doc-ascending)."""
+        if self.config.head_m and not self.config.exact_scoring:
+            raise NotImplementedError(
+                "BM25Config.head_m pruning is not ported yet (ROADMAP.md "
+                "Queue 1, wide-term BM25)")
+        v = len(self._postings_doc)
+        dnorm = self._dnorm()
+        term_bucket = np.zeros(v, np.int32)
+        term_row = np.zeros(v, np.int32)
+        by_width: dict[int, list[int]] = {}
+        nnz = 0
+        for tid in range(v):
+            s, e = ranges[tid]
+            cnt = e - s
+            if cnt <= 0:
+                continue
+            w = _next_pow2(max(cnt, 16))
+            term_bucket[tid] = w
+            term_row[tid] = len(by_width.setdefault(w, []))
+            by_width[w].append(tid)
+            nnz += cnt
+        k1 = self.config.k1
+        mats = []
+        widths = tuple(sorted(by_width))
+        for w in widths:
+            tids = by_width[w]
+            doc_mat = np.full((len(tids) + 1, w), _BIG, np.int32)
+            imp_mat = np.zeros((len(tids) + 1, w), np.float32)
+            lens = np.fromiter(
+                (ranges[t][1] - ranges[t][0] for t in tids), np.int64,
+                len(tids))
+            total = int(lens.sum())
+            docs = np.empty(total, np.int64)
+            tfs = np.empty(total, np.float32)
+            pos = 0
+            for tid, ln in zip(tids, lens):
+                s, e = ranges[tid]
+                docs[pos:pos + ln] = self._postings_doc[tid][s:e]
+                tfs[pos:pos + ln] = self._postings_tf[tid][s:e]
+                pos += ln
+            rows = np.repeat(np.arange(1, len(tids) + 1), lens)
+            # Rows must be doc-sorted for the bitonic merge; adds are
+            # normally monotone: verify, lexsort otherwise.
+            if total > 1 and not np.all((np.diff(docs) >= 0)
+                                        | (np.diff(rows) != 0)):
+                order = np.lexsort((docs, rows))
+                docs, tfs = docs[order], tfs[order]
+            imps = tfs * (k1 + 1.0) / (tfs + dnorm[docs])
+            offs = np.concatenate(([0], np.cumsum(lens)[:-1]))
+            cols = np.arange(total) - np.repeat(offs, lens)
+            doc_mat[rows, cols] = docs
+            imp_mat[rows, cols] = imps
+            mats.append((torch.from_numpy(doc_mat).to(self.device),
+                         torch.from_numpy(imp_mat).to(self.device)))
+        return _Layout(widths=widths, mats=tuple(mats),
+                       term_bucket=term_bucket, term_row=term_row,
+                       device=self.device, nnz=nnz)
+
+    def compact(self) -> None:
+        """Full rebuild: drop dead postings, absorb the tail, refresh
+        BM25 global stats."""
+        if self._dead:
+            for tid in range(len(self._postings_doc)):
+                docs = self._postings_doc[tid]
+                if not any(d in self._dead for d in docs):
+                    continue
+                tfs = self._postings_tf[tid]
+                keep = [j for j, d in enumerate(docs)
+                        if d not in self._dead]
+                self._postings_doc[tid] = [docs[j] for j in keep]
+                self._postings_tf[tid] = [tfs[j] for j in keep]
+            for d in self._dead:
+                self.doc_len[d] = 0
+            self._dead = set()
+        self._main_count = [len(p) for p in self._postings_doc]
+        self._main = self._build_layout(
+            [(0, c) for c in self._main_count])
+        self._tail = None
+        self._tail_nnz = 0
+        self._builds += 1
+
+    def _needs_compact(self) -> bool:
+        if self._main is None:
+            return True
+        if self._tail_nnz > max(self.TAIL_COMPACT_MIN,
+                                self.TAIL_COMPACT_RATIO * self._main.nnz):
+            return True
+        if len(self._dead) > max(self.DEAD_COMPACT_MIN,
+                                 self.DEAD_COMPACT_RATIO * max(self.n_docs, 1)):
+            return True
+        return False
+
+    def _tail_layout(self) -> _Layout:
+        if self._tail is None:
+            self._tail = self._build_layout(
+                [(c, len(p)) for c, p in
+                 zip(self._main_count, self._postings_doc)])
+        return self._tail
+
+    # -- query ---------------------------------------------------------------
+
+    def query_idf_mass(self, queries: list[str]) -> np.ndarray:
+        """Per-query total idf mass: sum of idf over ALL query tokens,
+        including out-of-vocabulary ones (df=0 -> the Okapi maximum). The
+        hybrid engine's keyword-coverage gate thresholds the best BM25
+        score against it (engine/hybrid.py)."""
+        df_live = max(self.n_docs, 1)
+        out = np.zeros(len(queries), np.float32)
+        for qi, q in enumerate(queries):
+            mass = 0.0
+            for tok in tokenize_query(q):
+                tid = self.vocab.get(tok)
+                df = (0 if tid is None
+                      else min(len(self._postings_doc[tid]), df_live))
+                mass += math.log(1.0 + (df_live - df + 0.5) / (df + 0.5))
+            out[qi] = mass
+        return out
+
+    def search(self, queries: list[str], k: int, as_device: bool = False):
+        """BM25 top-k for a batch of text queries.
+
+        Returns (scores, ids) as (B, k) float32/int32 numpy arrays;
+        empty slots are (NEG_INF, -1). as_device=True returns tensors on
+        the index's device (for callers that fuse further, e.g. RRF)."""
+        bqueries = [tokenize_query(q) for q in queries]
+        return self.search_tokens(bqueries, k, as_device=as_device)
+
+    def _score(self, rows: list[list[int]], kk: int, layout: _Layout):
+        """Score one segment: width-class the queries against this
+        layout's buckets and run the fused scoring tail per class."""
+        bsz = len(rows)
+        scores = torch.full((bsz, kk), NEG_INF, dtype=torch.float32,
+                            device=self.device)
+        ids = torch.full((bsz, kk), -1, dtype=torch.int32, device=self.device)
+        if not layout.mats:
+            return scores, ids
+        tb = layout.term_bucket
+        v = len(tb)  # terms born after this layout was built are absent
+        wide_w = self.config.wide_term_width
+        if any(t < v and tb[t] > wide_w for tids in rows for t in tids):
+            raise NotImplementedError(
+                f"a query term has more than {wide_w} postings "
+                "(BM25Config.wide_term_width): wide-term queries are not "
+                "ported yet (ROADMAP.md Queue 1, 'Wide-term BM25 slice')")
+        return self._score_classed(rows, kk, layout, scores, ids,
+                                   list(range(bsz)))
+
+    def _score_classed(self, rows: list[list[int]], kk: int,
+                       layout: _Layout, scores, ids, members_map):
+        """The classed fused path: scatter results into (scores, ids) at
+        members_map positions."""
+        bsz = len(rows)
+        ladder = tuple(sorted(self.config.width_ladder or ()))
+        tb, tr = layout.term_bucket, layout.term_row
+        v = len(tb)
+
+        def row_pmax(tids):
+            p = max((int(tb[t]) for t in tids if t < v and tb[t] > 0),
+                    default=16)
+            for w in ladder:
+                if w >= p:
+                    return w
+            return p
+
+        if self.config.width_classes and bsz > 1:
+            groups: dict[tuple[int, int], list[int]] = {}
+            for bi, tids in enumerate(rows):
+                key = (row_pmax(tids), _next_pow2(max(len(tids), 1)))
+                groups.setdefault(key, []).append(bi)
+        else:
+            groups = {(max((row_pmax(r) for r in rows), default=16),
+                       _next_pow2(max((len(r) for r in rows), default=1)))
+                      : list(range(bsz))}
+
+        df_live = max(self.n_docs, 1)
+        cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
+        for (p_max, t_max), members in groups.items():
+            # A class can't yield more candidates than it has lanes.
+            k_eff = min(kk, t_max * p_max)
+            g = len(members)
+            bucketw = np.zeros((g, t_max), np.int32)
+            rowid = np.zeros((g, t_max), np.int32)
+            idf = np.zeros((g, t_max), np.float32)
+            for gi, bi in enumerate(members):
+                for ti, tid in enumerate(rows[bi]):
+                    if tid >= v or tb[tid] == 0:
+                        continue  # term absent from this segment
+                    bucketw[gi, ti] = tb[tid]
+                    rowid[gi, ti] = tr[tid] + 1  # +1: row 0 = pad
+                    # df counts dead postings until compaction; clamp to
+                    # the live doc count so Okapi idf stays positive.
+                    df = min(len(self._postings_doc[tid]), df_live)
+                    idf[gi, ti] = math.log(
+                        1.0 + (df_live - df + 0.5) / (df + 0.5))
+            s, i = _bucket_score(bucketw, rowid, idf, layout, k=k_eff,
+                                 p_max=p_max, t=t_max, cbits=cbits)
+            if s.shape[1] < kk:
+                s = torch.nn.functional.pad(s, (0, kk - s.shape[1]),
+                                            value=NEG_INF)
+                i = torch.nn.functional.pad(i, (0, kk - i.shape[1]),
+                                            value=-1)
+            sel = torch.as_tensor([members_map[bi] for bi in members],
+                                  dtype=torch.long, device=self.device)
+            scores[sel] = s[:, :kk]
+            ids[sel] = i[:, :kk]
+        return scores, ids
+
+    def search_tokens(self, token_lists: list[list[str]], k: int,
+                      as_device: bool = False):
+        bsz = len(token_lists)
+        with self._build_lock:  # single-flight the lazy compaction
+            if self._needs_compact():
+                self.compact()
+            main, tail_nnz = self._main, self._tail_nnz
+        n = len(self.doc_len)
+        if n == 0 or self.n_docs == 0:
+            empty_s = torch.full((bsz, k), NEG_INF, dtype=torch.float32)
+            empty_i = torch.full((bsz, k), -1, dtype=torch.int32)
+            if as_device:
+                return empty_s.to(self.device), empty_i.to(self.device)
+            return empty_s.numpy(), empty_i.numpy()
+        df_cap = int(self.config.max_df_ratio * max(self.n_docs, 1))
+        rows = []
+        for toks in token_lists:
+            tids = [self.vocab[t] for t in toks if t in self.vocab]
+            if self.config.max_df_ratio < 1.0:
+                tids = [t for t in tids
+                        if len(self._postings_doc[t]) <= df_cap]
+            rows.append(tids)
+
+        # Overfetch past tombstones (dead ids filtered below), rounded
+        # to bound the number of distinct k values.
+        extra = round_up(len(self._dead), 8) if self._dead else 0
+        kk = min(k + extra, max(n, 1))
+
+        scores, ids = self._score(rows, kk, main)
+        if tail_nnz:
+            with self._build_lock:
+                tail = self._tail_layout()
+            s2, i2 = self._score(rows, kk, tail)
+            # Main/tail doc sets are disjoint: plain candidate merge.
+            scores, ids = merge_topk(scores, ids, s2, i2, kk)
+            ids = torch.where(scores <= NEG_INF / 2, -1, ids)
+        if self._dead:
+            dead = torch.isin(ids, torch.as_tensor(
+                sorted(self._dead), dtype=torch.int32, device=self.device))
+            scores = torch.where(dead, NEG_INF, scores)
+            order = torch.argsort(-scores, dim=1, stable=True)
+            scores = torch.gather(scores, 1, order)
+            ids = torch.gather(ids, 1, order)
+            ids = torch.where(scores <= NEG_INF / 2, -1, ids)
+        scores, ids = scores[:, :k], ids[:, :k]
+        if scores.shape[1] < k:
+            scores = torch.nn.functional.pad(scores, (0, k - scores.shape[1]),
+                                             value=NEG_INF)
+            ids = torch.nn.functional.pad(ids, (0, k - ids.shape[1]),
+                                          value=-1)
+        if self.config.rank_compat_scores:
+            scores = rank_compat(scores)
+        if as_device:
+            return scores, ids
+        return scores.cpu().numpy(), ids.cpu().numpy()
+
+    def __len__(self) -> int:
+        return self.n_docs
+
+    # -- persistence (binary postings) ---------------------------------------
+
+    def save(self, path) -> None:
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        offsets = np.zeros(len(self._postings_doc) + 1, np.int64)
+        np.cumsum([len(p) for p in self._postings_doc], out=offsets[1:])
+        flat_doc = np.fromiter(
+            (d for p in self._postings_doc for d in p), np.int32,
+            int(offsets[-1]))
+        flat_tf = np.fromiter(
+            (t for p in self._postings_tf for t in p), np.int32,
+            int(offsets[-1]))
+        np.savez(
+            path,
+            vocab=json.dumps(self.vocab, ensure_ascii=False),
+            doc_len=np.asarray(self.doc_len, np.int32),
+            n_docs=self.n_docs,
+            total_tokens=self._total_tokens,
+            post_offsets=offsets,
+            post_doc=flat_doc,
+            post_tf=flat_tf,
+            dead=np.fromiter(self._dead, np.int32, len(self._dead)),
+        )
+
+    @classmethod
+    def from_numpy(cls, vocab: dict, doc_len, n_docs: int, total_tokens: int,
+                   post_offsets, post_doc, post_tf, dead=(),
+                   config: BM25Config | None = None,
+                   device="cuda") -> "InvertedIndex":
+        """An index from flat postings arrays (the .npz layout): term tid's
+        postings are post_doc/post_tf[post_offsets[tid]:post_offsets[tid+1]]."""
+        idx = cls(config, device=device)
+        idx.vocab = dict(vocab)
+        idx.doc_len = [int(x) for x in doc_len]
+        idx.n_docs = int(n_docs)
+        offs = np.asarray(post_offsets)
+        fd, ft = np.asarray(post_doc), np.asarray(post_tf)
+        idx._postings_doc = [fd[offs[i]:offs[i + 1]].tolist()
+                             for i in range(len(offs) - 1)]
+        idx._postings_tf = [ft[offs[i]:offs[i + 1]].tolist()
+                            for i in range(len(offs) - 1)]
+        idx._total_tokens = int(total_tokens)
+        idx._dead = {int(x) for x in dead}
+        idx._main_count = [0] * len(idx._postings_doc)
+        return idx
+
+    @classmethod
+    def load(cls, path, config: BM25Config | None = None,
+             device="cuda") -> "InvertedIndex":
+        data = np.load(pathlib.Path(path).with_suffix(".npz"),
+                       allow_pickle=False)
+        if "post_offsets" not in data:
+            raise NotImplementedError(
+                "the round-1 JSON postings format is not ported; re-save "
+                "the index with the JAX package first")
+        return cls.from_numpy(
+            json.loads(str(data["vocab"])), data["doc_len"],
+            int(data["n_docs"]), int(data["total_tokens"]),
+            data["post_offsets"], data["post_doc"], data["post_tf"],
+            data["dead"], config=config, device=device)

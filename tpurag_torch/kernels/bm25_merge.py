@@ -1,0 +1,155 @@
+# Ported from tpurag/kernels/bm25_pallas.py (merge_segsum_topk, the
+# out_full=False form of _merge_segsum_kernel, and pallas_merge_ok).
+"""Fused BM25 merge + segment-sum + top-k.
+
+Per candidate row (one query): a bitonic merge of T doc-sorted P-blocks,
+a T-window shift-add segment sum, then a k-pass top-k. On a CUDA tensor
+``merge_segsum_topk`` launches the hand-written kernel
+(csrc/bm25_merge.cu), which keeps the whole row in one block's shared
+memory; on a CPU tensor it runs ``merge_segsum_topk_ref``, which is the
+same network and the same sums in plain torch (bit-identical to the JAX
+package's Pallas kernel in interpret mode).
+
+Input contract (prepared by index/inverted.py:_bucket_score):
+- doc (B, W) int32, con (B, W) float32, W = T*P with T, P powers of two;
+- each P-block ascending by doc for even block index, DESCENDING for odd
+  (the caller flips odd terms), so each 2P block is bitonic and the
+  network starts at size 2P; for T == 1 the caller passes p = W and the
+  row is already sorted;
+- invalid lanes parked at doc = 2^30 with contribution 0.
+
+cbits > 0 packs (doc, quantized contribution) into one int32 key,
+key = doc << cbits | q, q = round(con / max(rowmax, 1e-30) * qmax),
+qmax = 2^cbits - 1, half-to-even rounding, q clamped to [0, qmax] as an
+integer; lanes whose doc does not fit
+become the pad key 2^31 - 1. The network then moves one array instead
+of two; the sums use q * (max(rowmax, 1e-30) / qmax).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
+                                          load_kernels)
+from tpurag_torch.kernels.topk import select_topk
+
+_BIG = 2**30
+_PAD_KEY = 2**31 - 1
+
+# Widest candidate row the fused kernel takes: 16384 lanes are 128 KB of
+# shared memory unpacked (doc + con), 64 KB packed. The JAX package has
+# the same boundary (PALLAS_MAX_MERGE_LANES), so both packages route the
+# same queries; wider rows take kernels/bm25.segsum_topk_candidates.
+MAX_MERGE_LANES = 1 << 14
+
+
+def merge_ok(w: int) -> bool:
+    """True if a (B, w) candidate row goes to the fused merge."""
+    return w <= MAX_MERGE_LANES
+
+
+def _pack(doc: torch.Tensor, con: torch.Tensor, cbits: int):
+    qmax = (1 << cbits) - 1
+    pad_doc = _PAD_KEY >> cbits
+    safe = torch.clamp_min(con.amax(dim=1, keepdim=True), 1e-30)
+    # Clamp in integers: past cbits = 24 float32 cannot hold qmax, and a
+    # float clamp would let the row max round up to 2^cbits and spill
+    # into the doc bits (the JAX package's packed merge does, for
+    # corpora under 63 docs).
+    qv = torch.round(con / safe * qmax).to(torch.int64).clamp(0, qmax)
+    qv = qv.to(torch.int32)
+    key = torch.where(doc < pad_doc, (doc << cbits) | qv, _PAD_KEY)
+    # A tensor divisor: PyTorch's CUDA division by a Python scalar is a
+    # reciprocal multiply, which is not the kernel's (or JAX's) division.
+    return key, safe / torch.full_like(safe, qmax)
+
+
+def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
+                          p: int, t: int = 1, cbits: int = 0):
+    """Plain version of the fused kernel (same network, same sums)."""
+    b, w = doc.shape
+    lane = torch.arange(w, device=doc.device)
+    if cbits:
+        key, scale = _pack(doc, con, cbits)
+        arrays = [key]
+    else:
+        arrays = [doc, con]
+    kk = 2 * p
+    while kk <= w:
+        s = kk // 2
+        while s >= 1:
+            upper = (lane & s) != 0
+            partner = torch.where(upper, lane - s, lane + s)
+            nbrs = [x[:, partner] for x in arrays]
+            want_min = ((lane & kk) == 0) ^ upper
+            take = ((want_min & (nbrs[0] < arrays[0]))
+                    | (~want_min & (nbrs[0] > arrays[0])))
+            arrays = [torch.where(take, nx, x) for nx, x in zip(nbrs, arrays)]
+            s //= 2
+        kk *= 2
+    if cbits:
+        key = arrays[0]
+        doc_s = key >> cbits            # keys are >= 0: arithmetic == logical
+        con_s = (key & ((1 << cbits) - 1)).float() * scale
+        big = _PAD_KEY >> cbits
+    else:
+        doc_s, con_s = arrays
+        big = _BIG
+    nxt = torch.roll(doc_s, -1, dims=1)
+    is_end = (doc_s != nxt) | (lane == w - 1)
+    total = con_s
+    for j in range(1, t):
+        dj = torch.roll(doc_s, j, dims=1)
+        cj = torch.roll(con_s, j, dims=1)
+        total = total + torch.where((dj == doc_s) & (lane >= j), cj, 0.0)
+    seg = torch.where(is_end & (doc_s < big), total, NEG_INF)
+    vals, ids = select_topk(seg, doc_s, k)
+    empty = vals <= 0.0
+    return torch.where(empty, NEG_INF, vals), torch.where(empty, -1, ids)
+
+
+def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
+                      t: int = 1, cbits: int = 0):
+    """(B, k) BM25 top-k (scores, ids) of candidate rows, empties as
+    (NEG_INF, -1). CPU tensors take the plain version; CUDA tensors launch
+    the kernel (csrc/bm25_merge.cu) or raise."""
+    if doc.device.type == "cpu":
+        return merge_segsum_topk_ref(doc, con, k, p, t, cbits)
+    if doc.device.type != "cuda":
+        raise ValueError(f"merge_segsum_topk: unsupported device {doc.device}")
+    if doc.dtype != torch.int32 or con.dtype != torch.float32:
+        raise TypeError("merge_segsum_topk: doc must be int32, con float32")
+    if doc.dim() != 2 or doc.shape != con.shape or con.device != doc.device:
+        raise ValueError("merge_segsum_topk: doc and con must be equal (B, W) "
+                         "tensors on one device")
+    if not (doc.is_contiguous() and con.is_contiguous()):
+        raise ValueError("merge_segsum_topk: inputs must be contiguous")
+    b, w = doc.shape
+    if w & (w - 1) or p & (p - 1) or w % p or t < 1 or w % t:
+        raise ValueError(f"merge_segsum_topk: W={w}, p={p}, t={t} must be "
+                         "powers of two with p | W")
+    if not merge_ok(w):
+        raise ValueError(f"merge_segsum_topk: W={w} > {MAX_MERGE_LANES} lanes")
+    if not 1 <= k <= w or not 0 <= cbits <= 30:
+        raise ValueError(f"merge_segsum_topk: bad k={k} or cbits={cbits}")
+    out_v = torch.empty((b, k), dtype=torch.float32, device=doc.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=doc.device)
+    if b == 0:
+        return out_v, out_i
+    fn = load_kernels().tr_merge_segsum_topk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    err = fn(doc.data_ptr(), con.data_ptr(), b, w, p, t, cbits, k,
+             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(doc.device))
+    check_launch(err, "merge_segsum_topk")
+    merge_segsum_topk.launches += 1
+    return out_v, out_i
+
+
+merge_segsum_topk.launches = 0

@@ -1,0 +1,115 @@
+# Ported from tpurag/kernels/dense.py (dense_topk_xla -> dense_topk_ref,
+# dense_topk_pallas -> the CUDA kernel in csrc/dense_topk.cu).
+"""Dense cosine-similarity top-k.
+
+Embeddings and queries are L2-normalized by the index layer, so the dot
+product is the cosine score. ``dense_topk`` is the dispatching wrapper:
+a CUDA corpus goes to the hand-written Hopper kernel (the (B, N) score
+matrix is never written to device memory), a CPU corpus to
+``dense_topk_ref``, the plain version (one matmul, then a stable sort).
+
+Contract (same as the JAX package's Pallas kernel): (B, k) float32
+scores descending and int32 ids, ties to the smaller id, rows at or past
+``n_valid`` never returned, empty slots (NEG_INF, -1) even when
+k > n_valid, queries cast to the corpus dtype before the product, fp32
+accumulation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpurag_torch.kernels.runtime import (NEG_INF, cdiv, check_launch,
+                                          cuda_stream, load_kernels)
+
+# Kernel tile sizes (csrc/dense_topk.cu: TQ queries x TN corpus rows).
+TILE_Q = 64
+TILE_N = 128
+# Blocks the split heuristic aims for: two per SM on a 132-SM H100.
+TARGET_BLOCKS = 264
+# Candidates per query the merge pass holds in shared memory.
+MAX_MERGE_CANDIDATES = 8192
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dense_topk_ref(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                   k: int):
+    """Plain version: full (B, N) fp32 scores, masked past n_valid, then
+    a stable descending sort (ties keep the smaller column first)."""
+    q = queries.to(emb.dtype).float()
+    scores = q @ emb.float().T
+    n = emb.shape[0]
+    col = torch.arange(n, device=emb.device)
+    scores = torch.where(col[None, :] < int(n_valid), scores, NEG_INF)
+    if n < k:
+        scores = torch.nn.functional.pad(scores, (0, k - n), value=NEG_INF)
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals = vals[:, :k].contiguous()
+    ids = torch.where(vals <= NEG_INF / 2, -1, idx[:, :k].to(torch.int32))
+    return vals, ids
+
+
+def dense_splits(b: int, n_valid: int, k: int) -> int:
+    """Corpus splits per query tile: enough blocks to fill the card, at
+    least one corpus tile each, and few enough partial lists per query
+    for the merge pass."""
+    q_tiles = cdiv(max(b, 1), TILE_Q)
+    n_tiles = max(cdiv(n_valid, TILE_N), 1)
+    s = min(cdiv(TARGET_BLOCKS, q_tiles), n_tiles)
+    return max(1, min(s, MAX_MERGE_CANDIDATES // k))
+
+
+def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
+               k: int):
+    """Cosine top-k of (B, D) queries against the first n_valid rows of
+    the (N, D) corpus. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (csrc/dense_topk.cu) or raise."""
+    if emb.device.type == "cpu":
+        return dense_topk_ref(queries, emb, n_valid, k)
+    if emb.device.type != "cuda":
+        raise ValueError(f"dense_topk: unsupported device {emb.device}")
+    if emb.dtype not in _DTYPE_CODE:
+        raise TypeError(f"dense_topk: corpus dtype {emb.dtype} not supported "
+                        "by the kernel (bfloat16 or float32)")
+    if emb.dim() != 2 or queries.dim() != 2:
+        raise ValueError("dense_topk: queries and corpus must be 2-D")
+    if queries.device != emb.device:
+        raise ValueError("dense_topk: queries and corpus on different devices")
+    if not emb.is_contiguous():
+        raise ValueError("dense_topk: corpus must be contiguous")
+    b, d = queries.shape
+    n = emb.shape[0]
+    n_valid = int(n_valid)
+    if d != emb.shape[1]:
+        raise ValueError(f"dense_topk: dim mismatch {d} != {emb.shape[1]}")
+    if k < 1 or not 0 <= n_valid <= n:
+        raise ValueError(f"dense_topk: bad k={k} or n_valid={n_valid} "
+                         f"for {n} rows")
+    q = queries.to(emb.dtype).contiguous()
+    out_v = torch.empty((b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=emb.device)
+    if b == 0:
+        return out_v, out_i
+    splits = dense_splits(b, n_valid, k)
+    part_v = torch.empty((b, splits, k), dtype=torch.float32,
+                         device=emb.device)
+    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=emb.device)
+    fn = load_kernels().tr_dense_topk
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    err = fn(q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, n, d,
+             n_valid, k, splits, part_v.data_ptr(), part_i.data_ptr(),
+             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(emb.device))
+    check_launch(err, "dense_topk")
+    dense_topk.launches += 1
+    return out_v, out_i
+
+
+dense_topk.launches = 0
