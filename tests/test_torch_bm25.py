@@ -213,10 +213,29 @@ def test_packed_default_scores_close_to_exact():
 
 
 def test_wide_term_query_raises():
-    rng = np.random.default_rng(1)
-    texts = [f"common t{i % 7}" for i in range(100)]
+    """The wide-term path's kernel wrappers raise on a device they have
+    no kernel for, rather than giving way to their plain versions."""
+    from tpurag_torch.kernels.bm25_join import combine_topk
+    from tpurag_torch.kernels.bm25_merge import merge_segsum_full
+
+    rows = torch.zeros((1, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        combine_topk(rows, rows.int(), rows, rows.int(), k=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        merge_segsum_full(rows.int(), rows, p=4, t=2)
+
+
+def test_wide_term_query_matches_unsplit():
+    """Wide-term queries answer as the index with the split turned off
+    does."""
+    texts = [f"common t{i % 7}" + " pad" * i for i in range(100)]
     tidx = InvertedIndex(BM25Config(wide_term_width=64), device="cpu")
-    tidx.add_batch(range(100), texts)
+    whole = InvertedIndex(BM25Config(wide_term_width=1 << 20), device="cpu")
+    for idx in (tidx, whole):
+        idx.add_batch(range(100), texts)
     assert tidx.search(["t3"], 4)[1][0, 0] >= 0  # narrow terms still work
-    with pytest.raises(NotImplementedError, match="wide-term"):
-        tidx.search(["common t3"], 4)
+    (gv, gi), (wv, wi) = (x.search(["common t3", "common"], 4)
+                          for x in (tidx, whole))
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gv, wv, rtol=1e-5)
+    assert (gi >= 0).all()

@@ -71,3 +71,48 @@ def test_kb_on_card_matches_cpu(cuda):
             np.testing.assert_allclose([r.score for r in g.results],
                                        [r.score for r in w.results],
                                        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("t,p,cbits", [
+    (2, 16, 0), (8, 64, 14), (8, 2048, 0), (2, 8192, 14),
+    (4, 16384, 0),    # W = 65536: past one block's shared memory
+    (2, 32768, 12),   # W = 65536 packed
+])
+def test_full_merge_kernel_matches_plain(cuda, t, p, cbits):
+    from tpurag_torch.kernels.bm25_merge import merge_segsum_full
+
+    before = merge_segsum_full.launches
+    chip_smoke.check_full(8, t, p, cbits, n_docs=200_000, seed=t * p)
+    assert merge_segsum_full.launches == before + 1
+
+
+@pytest.mark.parametrize("wn,ww,k", [
+    (64, 128, 8), (2048, 4096, 40), (16384, 65536, 8), (65536, 32768, 8),
+])
+def test_combine_kernel_matches_plain(cuda, wn, ww, k):
+    from tpurag_torch.kernels.bm25_join import combine_topk
+
+    before = combine_topk.launches
+    chip_smoke.check_combine(16, wn, ww, k, n_docs=200_000, seed=wn + ww)
+    assert combine_topk.launches == before + 1
+
+
+def test_wide_term_index_on_card_matches_cpu(cuda):
+    from tpurag_torch.core.config import BM25Config
+    from tpurag_torch.index.inverted import InvertedIndex
+
+    rng = np.random.default_rng(3)
+    texts = [" ".join(["common"] * (1 + i % 3) + [f"t{j}" for j in
+                      rng.choice(2000, 6)] + ["pad"] * (i % 50))
+             for i in range(3000)]
+    idx = [InvertedIndex(BM25Config(wide_term_width=64, packed_merge=False),
+                         device=dev) for dev in ("cuda", "cpu")]
+    for x in idx:
+        x.add_batch(range(3000), texts)
+        x.delete_docs([5, 77])
+    # 'common' and 'pad' are wide (df > 64), the t-terms narrow.
+    queries = [f"common t{i} t{i + 1}" for i in range(40)] + ["t3 t4",
+                                                               "pad common"]
+    (gv, gi), (cv, ci) = (x.search(queries, 10) for x in idx)
+    np.testing.assert_array_equal(gi, ci)
+    np.testing.assert_allclose(gv, cv, rtol=1e-6)

@@ -1,4 +1,4 @@
-# Ported from tpurag/index/inverted.py (narrow-query path, single device).
+# Ported from tpurag/index/inverted.py (single device).
 """Inverted index (keyword search).
 
 Host side: vocabulary + per-term postings accumulated incrementally.
@@ -11,14 +11,22 @@ Device layout (same as the JAX package):
 - queries are width-classed: each query runs at the max bucket width of
   its own terms, rounded up to BM25Config.width_ladder;
 - scoring tail = bitonic merge + T-window segment sum + top-k, the fused
-  kernel of kernels/bm25_merge.py (CUDA kernel on the card, its plain
+  kernel of kernels/bm25_merge.py (K2: CUDA kernel on the card, its plain
   version on the CPU); rows wider than its limit take
-  kernels/bm25.segsum_topk_candidates.
+  kernels/bm25.segsum_topk_candidates;
+- queries holding a term whose bucket is wider than ``wide_term_width``
+  split additively: their narrow terms and their wide terms each merge
+  into full doc-sorted rows of per-doc partial sums, one class at a time
+  (kernels/bm25_merge.merge_segsum_full, K3), and each wide class joins
+  its members' narrow rows into an exact top-k
+  (kernels/bm25_join.combine_topk, K4);
+- ``BM25Config.head_m`` > 0 keeps only a term's head_m highest-impact
+  postings (approximate; exact_scoring=True turns it off).
 
 Mutability: adds after the first build land in a TAIL segment; deletes
-tombstone ids (candidate overfetch + filter); compact() rebuilds. Queries
-with a term whose bucket is wider than ``wide_term_width`` (the JAX
-package's exact narrow+wide combine) are not ported yet and raise.
+tombstone ids (candidate overfetch + filter); compact() rebuilds.
+Class inputs reach the card as non-blocking copies from pinned memory,
+so a search queues every class's work without waiting on the device.
 
 save/load use the JAX package's ``.npz`` format.
 """
@@ -38,7 +46,10 @@ import torch
 from tpurag_torch.core.config import BM25Config
 from tpurag_torch.ingest.tokenizer import tokenize, tokenize_query
 from tpurag_torch.kernels.bm25 import rank_compat, segsum_topk_candidates
-from tpurag_torch.kernels.bm25_merge import merge_ok, merge_segsum_topk
+from tpurag_torch.kernels.bm25_join import combine_topk
+from tpurag_torch.kernels.bm25_merge import (flip_odd_blocks, merge_ok,
+                                             merge_segsum_full,
+                                             merge_segsum_topk)
 from tpurag_torch.kernels.runtime import NEG_INF, round_up
 from tpurag_torch.kernels.topk import merge_topk
 
@@ -56,6 +67,16 @@ def packed_cbits(n_docs: int, enabled: bool = True) -> int:
         return 0
     c = 31 - max(int(n_docs) + 1, 2).bit_length()
     return c if c >= 12 else 0
+
+
+def full_cbits(w: int, t: int, cbits: int) -> int:
+    """The packing a (B, w) full-row class merges with: the JAX package
+    packs full rows only on its Pallas route (bm25_pallas.wide_merge_ok:
+    up to 16384 lanes, or 32768 when packed or t >= 4) and merges the
+    rest unpacked, so the port packs exactly where it does."""
+    if w <= 1 << 14 or (w <= 1 << 15 and (cbits > 0 or t >= 4)):
+        return cbits
+    return 0
 
 
 def _assemble(bucketw, rowid, idf, mats, p_max: int, t: int, widths):
@@ -92,28 +113,76 @@ def _bucket_score(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
 
     bucketw/rowid/idf: (g, t) host arrays per query-term slot (bucketw 0
     = empty slot)."""
-    used = set(np.unique(bucketw).tolist())
-    pairs = [(w, m) for w, m in zip(layout.widths, layout.mats) if w in used]
-    dev = layout.device
-    doc, con = _assemble(torch.as_tensor(bucketw, device=dev),
-                         torch.as_tensor(rowid, device=dev),
-                         torch.as_tensor(idf, device=dev),
-                         [m for _, m in pairs], p_max, t,
-                         [w for w, _ in pairs])
+    doc, con = _class_rows(bucketw, rowid, idf, layout, p_max, t)
     g = bucketw.shape[0]
-    if t > 1:
-        # Flip odd term slots so each 2P block is bitonic for the merge.
-        x4 = doc.reshape(g, t // 2, 2, p_max)
-        doc = torch.stack([x4[:, :, 0], x4[:, :, 1].flip(-1)], dim=2)
-        x4 = con.reshape(g, t // 2, 2, p_max)
-        con = torch.stack([x4[:, :, 0], x4[:, :, 1].flip(-1)], dim=2)
     doc = doc.reshape(g, t * p_max).contiguous()
     con = con.reshape(g, t * p_max).contiguous()
+    if t > 1:
+        doc = flip_odd_blocks(doc, p_max, t)
+        con = flip_odd_blocks(con, p_max, t)
     if merge_ok(t * p_max):
         return merge_segsum_topk(doc, con, k=k,
                                  p=p_max if t > 1 else t * p_max, t=t,
                                  cbits=cbits)
     return segsum_topk_candidates(doc, con, k=k)
+
+
+def _class_rows(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
+                layout: "_Layout", p_max: int, t: int):
+    """One class's (g, t, p_max) candidate rows, each term slot's P-block
+    plain doc-ascending."""
+    used = set(np.unique(bucketw).tolist())
+    pairs = [(w, m) for w, m in zip(layout.widths, layout.mats) if w in used]
+    dev = layout.device
+    return _assemble(torch.as_tensor(bucketw, device=dev),
+                     torch.as_tensor(rowid, device=dev),
+                     torch.as_tensor(idf, device=dev),
+                     [m for _, m in pairs], p_max, t,
+                     [w for w, _ in pairs])
+
+
+def _class_full_rows(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
+                     layout: "_Layout", p_max: int, t: int, cbits: int):
+    """One class -> full doc-sorted segsummed rows (seg, doc_s), each
+    (g, t*p_max): exact per-doc partial sums at segment-end lanes (K3)."""
+    doc, con = _class_rows(bucketw, rowid, idf, layout, p_max, t)
+    g = bucketw.shape[0]
+    w = t * p_max
+    return merge_segsum_full(doc.reshape(g, w).contiguous(),
+                             con.reshape(g, w).contiguous(), p=p_max, t=t,
+                             cbits=full_cbits(w, t, cbits))
+
+
+def wide_flow(n_classes, w_classes, h: int, kk: int, wn_max: int,
+              layout: "_Layout", cbits: int):
+    """Device flow for queries holding wide terms.
+
+    n_classes / w_classes: lists of (p_max, t, sel, bucketw, rowid, idf),
+    sel a (g,) long tensor of positions in the h-row output and the
+    bucketw/rowid/idf (g, t) host arrays of the class's members. Narrow
+    classes fill an (h, wn_max) full-row buffer; each wide class merges
+    its own full rows and combines them with its members' narrow rows
+    (one K4 launch per class). Returns (h, kk) scores / ids."""
+    dev = layout.device
+    n_val = torch.full((h, wn_max), NEG_INF, dtype=torch.float32, device=dev)
+    n_doc = torch.full((h, wn_max), _BIG, dtype=torch.int32, device=dev)
+    for p_max, t, sel, bw, ri, idf in n_classes:
+        seg, doc_s = _class_full_rows(bw, ri, idf, layout, p_max, t, cbits)
+        n_val[sel, :seg.shape[1]] = seg
+        n_doc[sel, :seg.shape[1]] = doc_s
+    # One doc spans at most max narrow t + wide t lanes across the two
+    # merged sides: the window of the plain version's segment sum.
+    max_tn = max((cls[1] for cls in n_classes), default=0)
+    scores = torch.full((h, kk), NEG_INF, dtype=torch.float32, device=dev)
+    ids = torch.full((h, kk), -1, dtype=torch.int32, device=dev)
+    for p_max, t, sel, bw, ri, idf in w_classes:
+        w_seg, w_doc = _class_full_rows(bw, ri, idf, layout, p_max, t, cbits)
+        s, i = combine_topk(n_val[sel], n_doc[sel], w_seg.contiguous(),
+                            w_doc.contiguous(), k=kk,
+                            window=max(2, max_tn + t))
+        scores[sel] = s
+        ids[sel] = i
+    return scores, ids
 
 
 @dataclasses.dataclass
@@ -223,15 +292,20 @@ class InvertedIndex:
         k1, b = self.config.k1, self.config.b
         return np.maximum(k1 * (1.0 - b + b * dl / self._avgdl), 1e-6)
 
+    def _impacts(self, tid: int, start: int, end: int, dnorm: np.ndarray):
+        docs = np.asarray(self._postings_doc[tid][start:end], np.int64)
+        tfs = np.asarray(self._postings_tf[tid][start:end], np.float32)
+        k1 = self.config.k1
+        return docs, tfs * (k1 + 1.0) / (tfs + dnorm[docs])
+
     def _build_layout(self, ranges: list[tuple[int, int]]) -> _Layout:
         """Build one segment layout from per-term posting ranges (one flat
-        scatter per width bucket; postings arrive doc-ascending)."""
-        if self.config.head_m and not self.config.exact_scoring:
-            raise NotImplementedError(
-                "BM25Config.head_m pruning is not ported yet (ROADMAP.md "
-                "Queue 1, wide-term BM25)")
+        scatter per width bucket; postings arrive doc-ascending). With
+        head_m > 0 a term keeps its head_m highest-impact postings
+        (per-term loop, only for buckets holding such a term)."""
         v = len(self._postings_doc)
         dnorm = self._dnorm()
+        head_m = self.config.head_m if not self.config.exact_scoring else 0
         term_bucket = np.zeros(v, np.int32)
         term_row = np.zeros(v, np.int32)
         by_width: dict[int, list[int]] = {}
@@ -241,7 +315,8 @@ class InvertedIndex:
             cnt = e - s
             if cnt <= 0:
                 continue
-            w = _next_pow2(max(cnt, 16))
+            eff = min(cnt, head_m) if head_m > 0 else cnt
+            w = _next_pow2(max(eff, 16))
             term_bucket[tid] = w
             term_row[tid] = len(by_width.setdefault(w, []))
             by_width[w].append(tid)
@@ -253,6 +328,21 @@ class InvertedIndex:
             tids = by_width[w]
             doc_mat = np.full((len(tids) + 1, w), _BIG, np.int32)
             imp_mat = np.zeros((len(tids) + 1, w), np.float32)
+            if head_m > 0 and any(ranges[t][1] - ranges[t][0] > w
+                                  for t in tids):
+                for row, tid in enumerate(tids):
+                    docs, imps = self._impacts(tid, *ranges[tid], dnorm)
+                    if len(docs) > w:
+                        # Impact-ordered head: keep the top w by impact,
+                        # doc-sorted (approximate; BM25Config.head_m).
+                        top = np.argpartition(-imps, w - 1)[:w]
+                        top = top[np.argsort(docs[top], kind="stable")]
+                        docs, imps = docs[top], imps[top]
+                    doc_mat[row + 1, :len(docs)] = docs
+                    imp_mat[row + 1, :len(imps)] = imps
+                mats.append((torch.from_numpy(doc_mat).to(self.device),
+                             torch.from_numpy(imp_mat).to(self.device)))
+                continue
             lens = np.fromiter(
                 (ranges[t][1] - ranges[t][0] for t in tids), np.int64,
                 len(tids))
@@ -354,7 +444,9 @@ class InvertedIndex:
 
     def _score(self, rows: list[list[int]], kk: int, layout: _Layout):
         """Score one segment: width-class the queries against this
-        layout's buckets and run the fused scoring tail per class."""
+        layout's buckets and run the fused scoring tail per class.
+        Queries holding wide terms (bucket width > wide_term_width) split
+        into narrow + wide groups combined exactly (_score_wide)."""
         bsz = len(rows)
         scores = torch.full((bsz, kk), NEG_INF, dtype=torch.float32,
                             device=self.device)
@@ -364,13 +456,24 @@ class InvertedIndex:
         tb = layout.term_bucket
         v = len(tb)  # terms born after this layout was built are absent
         wide_w = self.config.wide_term_width
-        if any(t < v and tb[t] > wide_w for tids in rows for t in tids):
-            raise NotImplementedError(
-                f"a query term has more than {wide_w} postings "
-                "(BM25Config.wide_term_width): wide-term queries are not "
-                "ported yet (ROADMAP.md Queue 1, 'Wide-term BM25 slice')")
-        return self._score_classed(rows, kk, layout, scores, ids,
-                                   list(range(bsz)))
+        wide_rows = [[t for t in tids if t < v and tb[t] > wide_w]
+                     for tids in rows]
+        hard = [bi for bi in range(bsz) if wide_rows[bi]]
+        if not hard:
+            return self._score_classed(rows, kk, layout, scores, ids,
+                                       list(range(bsz)))
+        simple = [bi for bi in range(bsz) if not wide_rows[bi]]
+        if simple:
+            scores, ids = self._score_classed(
+                [rows[bi] for bi in simple], kk, layout, scores, ids, simple)
+        narrow_rows = [[t for t in rows[bi] if t < v and 0 < tb[t] <= wide_w]
+                       for bi in hard]
+        s, i = self._score_wide(narrow_rows, [wide_rows[bi] for bi in hard],
+                                kk, layout)
+        sel = torch.as_tensor(hard, dtype=torch.long, device=self.device)
+        scores[sel] = s[:, :kk]
+        ids[sel] = i[:, :kk]
+        return scores, ids
 
     def _score_classed(self, rows: list[list[int]], kk: int,
                        layout: _Layout, scores, ids, members_map):
@@ -431,6 +534,64 @@ class InvertedIndex:
             scores[sel] = s[:, :kk]
             ids[sel] = i[:, :kk]
         return scores, ids
+
+    def _score_wide(self, narrow_rows: list[list[int]],
+                    wide_rows: list[list[int]], kk: int, layout: _Layout):
+        """Queries with wide terms. Narrow terms give full doc-sorted
+        segsummed rows (one K3 launch per narrow class), wide terms the
+        same per (own width, term count) wide class, and combine_topk
+        adds the partial sums exactly into the top-kk. Each term runs at
+        its own bucket width: a df-20k term does not pad the query's
+        narrow terms to 32768 lanes."""
+        h = len(narrow_rows)
+        ladder = tuple(sorted(self.config.width_ladder or ()))
+        tb, tr = layout.term_bucket, layout.term_row
+        cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
+        df_live = max(self.n_docs, 1)
+
+        def idf_of(tid):
+            df = min(len(self._postings_doc[tid]), df_live)
+            return math.log(1.0 + (df_live - df + 0.5) / (df + 0.5))
+
+        def row_pmax_n(tids):
+            p = max((int(tb[t]) for t in tids), default=16)
+            for w in ladder:
+                if w >= p:
+                    return w
+            return p
+
+        def class_list(groups, rows_of):
+            out = []
+            for (p_max, t_max), members in groups.items():
+                g = len(members)
+                bucketw = np.zeros((g, t_max), np.int32)
+                rowid = np.zeros((g, t_max), np.int32)
+                idf = np.zeros((g, t_max), np.float32)
+                for gi, hi in enumerate(members):
+                    for ti, tid in enumerate(rows_of[hi]):
+                        bucketw[gi, ti] = tb[tid]
+                        rowid[gi, ti] = tr[tid] + 1  # +1: row 0 = pad
+                        idf[gi, ti] = idf_of(tid)
+                sel = torch.as_tensor(members, dtype=torch.long,
+                                      device=self.device)
+                out.append((p_max, t_max, sel, bucketw, rowid, idf))
+            return out
+
+        # Narrow side: full rows scattered into one (h, wn_max) buffer so
+        # each wide class selects its members' rows directly.
+        n_groups: dict[tuple[int, int], list[int]] = {}
+        for hi, tids in enumerate(narrow_rows):
+            key = (row_pmax_n(tids), _next_pow2(max(len(tids), 1)))
+            n_groups.setdefault(key, []).append(hi)
+        wn_max = max(p * t for (p, t) in n_groups)
+        w_groups: dict[tuple[int, int], list[int]] = {}
+        for hi, tids in enumerate(wide_rows):
+            key = (max(int(tb[t]) for t in tids),
+                   _next_pow2(max(len(tids), 1)))
+            w_groups.setdefault(key, []).append(hi)
+        return wide_flow(class_list(n_groups, narrow_rows),
+                         class_list(w_groups, wide_rows), h=h, kk=kk,
+                         wn_max=wn_max, layout=layout, cbits=cbits)
 
     def search_tokens(self, token_lists: list[list[str]], k: int,
                       as_device: bool = False):

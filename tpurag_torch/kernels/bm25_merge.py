@@ -1,16 +1,20 @@
-# Ported from tpurag/kernels/bm25_pallas.py (merge_segsum_topk, the
-# out_full=False form of _merge_segsum_kernel, and pallas_merge_ok).
-"""Fused BM25 merge + segment-sum + top-k.
+# Ported from tpurag/kernels/bm25_pallas.py (merge_segsum_topk and
+# merge_segsum_full, the two forms of _merge_segsum_kernel, and
+# pallas_merge_ok).
+"""Fused BM25 merge + segment sum: top-k (K2) and full rows (K3).
 
 Per candidate row (one query): a bitonic merge of T doc-sorted P-blocks,
-a T-window shift-add segment sum, then a k-pass top-k. On a CUDA tensor
-``merge_segsum_topk`` launches the hand-written kernel
-(csrc/bm25_merge.cu), which keeps the whole row in one block's shared
-memory; on a CPU tensor it runs ``merge_segsum_topk_ref``, which is the
-same network and the same sums in plain torch (bit-identical to the JAX
-package's Pallas kernel in interpret mode).
+a T-window shift-add segment sum, then either a k-pass top-k
+(``merge_segsum_topk``, K2) or the full doc-sorted row with each doc's
+partial sum at its segment-end lane (``merge_segsum_full``, K3, the
+input of the exact narrow+wide combine in kernels/bm25_join.py). On a
+CUDA tensor each wrapper launches its hand-written kernel
+(csrc/bm25_merge.cu); on a CPU tensor it runs its plain version
+(``*_ref``), which is the same network and the same sums in plain torch
+(bit-identical to the JAX package's Pallas kernel in interpret mode).
 
-Input contract (prepared by index/inverted.py:_bucket_score):
+merge_segsum_topk's input contract (prepared by
+index/inverted.py:_bucket_score):
 - doc (B, W) int32, con (B, W) float32, W = T*P with T, P powers of two;
 - each P-block ascending by doc for even block index, DESCENDING for odd
   (the caller flips odd terms), so each 2P block is bitonic and the
@@ -24,6 +28,11 @@ qmax = 2^cbits - 1, half-to-even rounding, q clamped to [0, qmax] as an
 integer; lanes whose doc does not fit
 become the pad key 2^31 - 1. The network then moves one array instead
 of two; the sums use q * (max(rowmax, 1e-30) / qmax).
+
+merge_segsum_full takes the P-blocks plain ascending (the kernel flips
+the odd ones as it loads them); t == 1 rows are already sorted with
+unique docs and come back as (where(doc < 2^30, con, NEG_INF), doc)
+without a launch.
 """
 
 from __future__ import annotations
@@ -67,9 +76,12 @@ def _pack(doc: torch.Tensor, con: torch.Tensor, cbits: int):
     return key, safe / torch.full_like(safe, qmax)
 
 
-def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
-                          p: int, t: int = 1, cbits: int = 0):
-    """Plain version of the fused kernel (same network, same sums)."""
+def _merge_rows(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
+                cbits: int):
+    """The kernels' network and sums: bitonic merge from block size 2p up
+    to W, then the t-window segment sum. Returns (seg, doc_s, big): seg
+    holds each doc's sum at its segment-end lane, NEG_INF elsewhere;
+    doc_s is the merged doc row; lanes with doc_s >= big are parked."""
     b, w = doc.shape
     lane = torch.arange(w, device=doc.device)
     if cbits:
@@ -106,9 +118,36 @@ def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
         cj = torch.roll(con_s, j, dims=1)
         total = total + torch.where((dj == doc_s) & (lane >= j), cj, 0.0)
     seg = torch.where(is_end & (doc_s < big), total, NEG_INF)
+    return seg, doc_s, big
+
+
+def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
+                          p: int, t: int = 1, cbits: int = 0):
+    """Plain version of the fused kernel (same network, same sums)."""
+    seg, doc_s, _ = _merge_rows(doc, con, p, t, cbits)
     vals, ids = select_topk(seg, doc_s, k)
     empty = vals <= 0.0
     return torch.where(empty, NEG_INF, vals), torch.where(empty, -1, ids)
+
+
+def flip_odd_blocks(x: torch.Tensor, p: int, t: int) -> torch.Tensor:
+    """A (B, t*p) row of t doc-ascending p-blocks with every odd block
+    reversed, so each 2p block is bitonic (merge_segsum_topk's input)."""
+    b = x.shape[0]
+    x4 = x.reshape(b, t // 2, 2, p)
+    return torch.stack([x4[:, :, 0], x4[:, :, 1].flip(-1)], dim=2).reshape(
+        b, t * p)
+
+
+def merge_segsum_full_ref(doc: torch.Tensor, con: torch.Tensor, p: int,
+                          t: int = 1, cbits: int = 0):
+    """Plain version of K3 (same network and sums as the kernel): the
+    (seg, doc_s) full rows of ``merge_segsum_full``."""
+    if t == 1:
+        return torch.where(doc < _BIG, con, NEG_INF), doc
+    seg, doc_s, big = _merge_rows(flip_odd_blocks(doc, p, t),
+                                  flip_odd_blocks(con, p, t), p, t, cbits)
+    return seg, torch.where(doc_s < big, doc_s, _BIG).to(torch.int32)
 
 
 def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
@@ -153,3 +192,62 @@ def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
 
 
 merge_segsum_topk.launches = 0
+
+
+def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
+                      t: int = 1, cbits: int = 0):
+    """(seg, doc_s), each (B, W = t*p): the doc-sorted merged row and each
+    doc's exact partial sum at its segment-end lane (NEG_INF elsewhere);
+    doc_s is monotone with parked lanes at 2^30. Input P-blocks plain
+    ascending. CPU tensors take the plain version; CUDA tensors launch
+    K3 (csrc/bm25_merge.cu; any W: rows past one block's shared memory
+    merge through device-memory scratch) or raise; t == 1 launches
+    nothing."""
+    if doc.device.type == "cpu":
+        return merge_segsum_full_ref(doc, con, p, t, cbits)
+    if doc.device.type != "cuda":
+        raise ValueError(f"merge_segsum_full: unsupported device {doc.device}")
+    if t == 1:
+        return torch.where(doc < _BIG, con, NEG_INF), doc
+    if doc.dtype != torch.int32 or con.dtype != torch.float32:
+        raise TypeError("merge_segsum_full: doc must be int32, con float32")
+    if doc.dim() != 2 or doc.shape != con.shape or con.device != doc.device:
+        raise ValueError("merge_segsum_full: doc and con must be equal "
+                         "(B, W) tensors on one device")
+    if not (doc.is_contiguous() and con.is_contiguous()):
+        raise ValueError("merge_segsum_full: inputs must be contiguous")
+    b, w = doc.shape
+    if p < 1 or p & (p - 1) or t & (t - 1) or w != t * p or w >= 2**30:
+        raise ValueError(f"merge_segsum_full: W={w}, p={p}, t={t} must be "
+                         "powers of two with W = t*p")
+    if not 0 <= cbits <= 30 or b > 65535:
+        raise ValueError(f"merge_segsum_full: bad cbits={cbits} or B={b}")
+    dev = doc.device
+    seg = torch.empty((b, w), dtype=torch.float32, device=dev)
+    doc_s = torch.empty((b, w), dtype=torch.int32, device=dev)
+    if b == 0:
+        return seg, doc_s
+    key_rows = con_rows = rowmax = None
+    if not merge_ok(w):  # scratch rows for the device-memory merge
+        key_rows = torch.empty((b, w), dtype=torch.int32, device=dev)
+        if cbits:
+            rowmax = torch.empty((b,), dtype=torch.float32, device=dev)
+        else:
+            con_rows = torch.empty((b, w), dtype=torch.float32, device=dev)
+    fn = load_kernels().tr_merge_segsum_full
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    err = fn(doc.data_ptr(), con.data_ptr(), b, w, p, t, cbits,
+             seg.data_ptr(), doc_s.data_ptr(),
+             *(0 if x is None else x.data_ptr()
+               for x in (key_rows, con_rows, rowmax)),
+             cuda_stream(dev))
+    check_launch(err, "merge_segsum_full")
+    merge_segsum_full.launches += 1
+    return seg, doc_s
+
+
+merge_segsum_full.launches = 0
