@@ -34,17 +34,34 @@ non-zero before the result line):
      a CPU index of the same postings; K1 (within TOL at near ties), K2,
      K3 and K4 (bit for bit) held to their plain versions and timed on
      the very inputs one request gave them.
+  8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
+     (benchmarks/kb_10m.py --n 1000000 with the device store): K5, K6 (int8,
+     bf16, fp32) and K8 against their plain versions at small shapes;
+     KnowledgeBase(quant=True) ingests 1M x 1024 chunks of a 1024-center
+     mixture through add_chunks, build_ivf() packs 4096 int8 lists, then
+     4 search_batch requests each of hybrid_ivf at b=32 and b=8 and of
+     hybrid at b=32 with every counter reset just before; K5, K6 and K8
+     replayed bit for bit (K8 within 1e-5) on one request's own inputs;
+     K5 beside K1 and torch._int_mm at b=32 and b=512; K6's bf16 form on a
+     100k-row bf16 IVF; mode 'ivf' recall@10 >= 0.95 against the full
+     probe; the same partition on the CPU giving the same ids; 1000
+     chunks after the build scanned by K1 in the tail; one profiled
+     hybrid_ivf request.
 
 The second-to-last stdout line is the kernel table as JSON, one row per
-kernel: launches over the 1M phase's 4 requests, and times, plain times,
-bounds and library times summed over one 1M request's launches; the last is
-{"ok": true, "device": {...}}. Without a CUDA device, or run outside the
-repository, it exits non-zero and prints no result.
+kernel: launches over the 1M phases' requests (K1-K4 phase 7, K5, K6, K8
+phase 8), and times, plain times, bounds and library times summed over one
+1M request's launches; the last is {"ok": true, "device": {...}}. Without a
+CUDA device, or run outside the repository, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -69,9 +86,19 @@ N_WIDE = 1_000_000
 VOCAB_WIDE = 158_110
 DF_MAX_WIDE = 20_480
 BATCH_WIDE = 512
+# benchmarks/kb_10m.py --n 1000000: 4096 lists, n_lists // 4 mixture
+# centers, noise 0.3, ingest blocks of 131072, b=32 held-out queries, k=10.
+N_IVF = 1_000_000
+N_LISTS_IVF = 4096
+N_CENTERS_IVF = 1024
+NOISE_IVF = 0.3
+IVF_BLOCK = 1 << 17
+B_IVF = 32
+K_IVF = 10
 # Published H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
+INT8_OPS_S = 1979e12
 FP32_OPS_S = 67e12  # outside the tensor cores; one compare counts as one
 
 
@@ -248,6 +275,119 @@ def check_combine(g: int, wn: int, ww: int, k: int, n_docs: int = N_DOCS,
             cuda_ms(lambda: combine_narrow_wide(*args)))
 
 
+def check_q8(b: int, n_rows: int, n_valid: int, d: int, k: int, seed: int = 0,
+             timed: bool = False):
+    """K5 against its plain version on the card: exact int dots and one
+    scale multiply, so values and ids must be bit-identical. Returns
+    (max_abs_err, kernel ms, plain ms)."""
+    from tpurag_torch.kernels.quant import (dense_scan_q8, dense_scan_q8_ref,
+                                            quantize_rows)
+
+    rng = np.random.default_rng(seed)
+    emb = torch.zeros((n_rows, d), device="cuda")
+    emb[:n_valid] = torch.from_numpy(unit_rows(rng, n_valid, d)).cuda()
+    e8, es = quantize_rows(emb)
+    q8, qs = quantize_rows(torch.from_numpy(unit_rows(rng, b, d)).cuda())
+    args = (q8, qs, e8, es, n_valid, k)
+    v_k, i_k = dense_scan_q8(*args)
+    v_r, i_r = dense_scan_q8_ref(*args)
+    torch.cuda.synchronize()
+    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+    assert torch.equal(i_k, i_r), f"K5 ids differ at b={b} n={n_valid} k={k}"
+    assert torch.equal(v_k, v_r), f"K5 values differ at b={b} n={n_valid} k={k}"
+    if not timed:
+        return 0.0, None, None
+    return (0.0, cuda_ms(lambda: dense_scan_q8(*args)),
+            cuda_ms(lambda: dense_scan_q8_ref(*args)))
+
+
+def check_gather(b: int, m: int, n: int, d: int, dtype=torch.bfloat16,
+                 seed: int = 0):
+    """K8 against its plain version on the card: the same fp32 dots summed
+    in another order, within 1e-5 (cosines of unit rows); ids < 0 are
+    masked downstream, so only live candidates are compared. Returns
+    max_abs_err."""
+    from tpurag_torch.kernels.quant import gather_scores, gather_scores_ref
+
+    rng = np.random.default_rng(seed)
+    emb = torch.from_numpy(unit_rows(rng, n, d)).cuda().to(dtype)
+    q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
+    ids = rng.integers(0, n, (b, m)).astype(np.int32)
+    ids[rng.random((b, m)) < 0.1] = -1
+    ids = torch.from_numpy(ids).cuda()
+    got = gather_scores(q, emb, ids)
+    want = gather_scores_ref(q, emb, ids)
+    torch.cuda.synchronize()
+    live = ids >= 0
+    err = (got - want)[live].abs().max().item()
+    assert err <= 1e-5, f"K8 differs by {err}"
+    return err
+
+
+def ivf_layout(rng, n_lists: int, d: int, dtype, sizes=(0, 1, 7, 40, 300)):
+    """A cluster-major IVF matrix on the card as the builds lay it out:
+    cluster sizes drawn from `sizes` (empty and small clusters included),
+    8-aligned starts, one IVF_SCAN_EXTENT tail. Returns (emb, starts,
+    counts, scales); emb holds int8 codes (with per-cluster scales) for
+    dtype torch.int8, else unit rows."""
+    from tpurag_torch.kernels.ivf_scan import IVF_SCAN_EXTENT
+
+    counts = rng.choice(sizes, n_lists).astype(np.int32)
+    pad = (counts + 7) // 8 * 8
+    starts = np.concatenate([[0], np.cumsum(pad)[:-1]]).astype(np.int32)
+    total = int(pad.sum()) + IVF_SCAN_EXTENT
+    rows = torch.from_numpy(unit_rows(rng, total, d)).cuda()
+    scales = torch.from_numpy(rng.uniform(0.002, 0.01, n_lists).astype(
+        np.float32)).cuda()
+    if dtype == torch.int8:
+        emb = torch.from_numpy(rng.integers(-127, 128, (total, d)).astype(
+            np.int8)).cuda()
+    else:
+        emb = rows.to(dtype)
+    return (emb, torch.from_numpy(starts).cuda(),
+            torch.from_numpy(counts).cuda(), scales)
+
+
+def probe_tables(rng, layout, b: int, n_probe: int):
+    """(B, n_probe) starts / counts / scales of distinct random clusters
+    per query."""
+    _, starts, counts, scales = layout
+    probe = torch.from_numpy(np.stack([
+        rng.choice(len(starts), n_probe, replace=False) for _ in range(b)
+    ])).cuda()
+    return starts[probe], counts[probe], scales[probe]
+
+
+def check_ivf(b: int, n_lists: int, n_probe: int, d: int, k: int, dtype,
+              seed: int = 0):
+    """K6 against its plain version on the card: int8 bit-identical (the
+    scores before the query scale, and the ids); bf16 / fp32 within TOL,
+    ids equal except at near ties. Returns max_abs_err."""
+    from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
+                                               ivf_probe_topk_ref)
+
+    rng = np.random.default_rng(seed)
+    layout = ivf_layout(rng, n_lists, d, dtype)
+    emb = layout[0]
+    starts, counts, scales = probe_tables(rng, layout, b, n_probe)
+    if dtype == torch.int8:
+        q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(
+            np.int8)).cuda()
+        args = (q, emb, starts, counts, k)
+        v_k, i_k = ivf_probe_topk(*args, scales_sel=scales)
+        v_r, i_r = ivf_probe_topk_ref(*args, scales_sel=scales)
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_r), f"K6 int8 ids differ at b={b} k={k}"
+        assert torch.equal(v_k, v_r), f"K6 int8 values differ at b={b} k={k}"
+        return 0.0
+    q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
+    v_k, i_k = ivf_probe_topk(q, emb, starts, counts, k)
+    v_r, i_r = ivf_probe_topk_ref(q, emb, starts, counts, k + 1)
+    torch.cuda.synchronize()
+    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+    return topk_agree(v_k, i_k, v_r, i_r)
+
+
 def zipf_df(vocab: int, df_max: int) -> np.ndarray:
     """bench.py's document frequencies: clip(df_max (1+r)^-0.5, 16, df_max)."""
     return np.clip(df_max * (1 + np.arange(vocab)) ** -0.5, 16,
@@ -303,6 +443,7 @@ def drive_slice(device: str, kernels=()) -> dict:
     save, reload on the CPU and compare 64 queries there."""
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.types import Chunk
+    from tpurag_torch.kernels.runtime import BUILD_DIR, launch_counts
 
     def sync():
         if device == "cuda":
@@ -334,7 +475,7 @@ def drive_slice(device: str, kernels=()) -> dict:
     sync()
 
     for fn in kernels:
-        fn.launches = 0
+        launch_counts[fn.__name__] = 0
     lat, answers = [], []
     for queries, qv, _ in batches[1:]:
         t0 = time.perf_counter()
@@ -342,7 +483,7 @@ def drive_slice(device: str, kernels=()) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
     singles = [kb.search(" ".join(f"w{t}" for t in rng.integers(0, 500, 3)))
                for _ in range(3)]
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = {fn.__name__: launch_counts[fn.__name__] for fn in kernels}
     log(f"[kb] 4 x search_batch(b={BATCH}, hybrid) + 3 x search: "
         f"launches {launches}")
 
@@ -359,8 +500,6 @@ def drive_slice(device: str, kernels=()) -> dict:
     assert all(s.results for s in singles)
     log(f"[kb] answers: 4 x {BATCH} responses, seed-row recall in fused "
         f"top-8 {recall:.4f}; 3 single searches non-empty")
-
-    from tpurag_torch.kernels.runtime import BUILD_DIR
 
     save_dir = BUILD_DIR / "smoke_kb"
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -427,6 +566,7 @@ def replay_dense(calls) -> dict:
         live = emb[:n_valid]
         qb = q.to(emb.dtype)
         lib_ms += cuda_ms(lambda: torch.topk(qb @ live.T, k))
+        del live, qb
         b, d = q.shape
         nbytes += (b * d * q.element_size() + n_valid * d * emb.element_size()
                    + b * k * 8)
@@ -526,7 +666,7 @@ def drive_wide(device: str, kernels=()) -> dict:
     from tpurag_torch.index import dense as dense_mod
     from tpurag_torch.index import inverted as inverted_mod
     from tpurag_torch.index.inverted import InvertedIndex
-    from tpurag_torch.kernels.runtime import BUILD_DIR
+    from tpurag_torch.kernels.runtime import BUILD_DIR, launch_counts
 
     def sync():
         if device == "cuda":
@@ -575,13 +715,13 @@ def drive_wide(device: str, kernels=()) -> dict:
         f"{time.perf_counter() - t0:.2f}s")
 
     for fn in kernels:
-        fn.launches = 0
+        launch_counts[fn.__name__] = 0
     lat, answers = [], []
     for queries, qv, _ in batches[1:]:
         t0 = time.perf_counter()
         answers.append(kb.search_batch(queries, mode="hybrid", vectors=qv))
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches = {fn.__name__: fn.launches for fn in kernels}
+    launches = {fn.__name__: launch_counts[fn.__name__] for fn in kernels}
     log(f"[wide] 4 x search_batch(b={BATCH_WIDE}, hybrid), hard (wide-term) "
         f"queries {hard[1:]} of {BATCH_WIDE}: launches {launches}")
 
@@ -622,16 +762,350 @@ def drive_wide(device: str, kernels=()) -> dict:
             "hard": hard[1:], "calls": calls, "profile": profile}
 
 
+def ivf_corpus(n: int, d: int, n_centers: int, seed: int = 0):
+    """benchmarks/kb_10m.py's mixture: unit centers, each row a center
+    plus Gaussian noise of norm ~NOISE_IVF. Returns (centers, a generator
+    of (lo, hi, rows) blocks of IVF_BLOCK rows)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_centers, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    which = rng.integers(0, n_centers, n)
+
+    def blocks():
+        for s in range(0, n, IVF_BLOCK):
+            e = min(s + IVF_BLOCK, n)
+            blk = rng.standard_normal((e - s, d), dtype=np.float32)
+            blk *= np.float32(NOISE_IVF / np.sqrt(d))
+            blk += centers[which[s:e]]
+            yield s, e, blk
+
+    return centers, blocks()
+
+
+def ivf_queries(centers: np.ndarray, b: int):
+    """kb_10m.py's held-out queries: fresh draws from the same mixture
+    (rng 1_000_003), texts 't{c % 997} z{c % 89}' of their centers."""
+    qrng = np.random.default_rng(1_000_003)
+    qc = qrng.integers(0, len(centers), b)
+    qv = qrng.standard_normal((b, centers.shape[1])).astype(np.float32)
+    qv *= np.float32(NOISE_IVF / np.sqrt(centers.shape[1]))
+    qv += centers[qc]
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    return qv, [f"t{int(c) % 997} z{int(c) % 89}" for c in qc]
+
+
+def ids_agree(v_a, i_a, v_b, i_b, tol: float) -> float:
+    """(B, k) results a against b, where b has one column more: topk_agree
+    on the host, empty slots (-1) included."""
+    return topk_agree(torch.as_tensor(v_a).cpu(), torch.as_tensor(i_a).cpu(),
+                      torch.as_tensor(v_b).cpu(), torch.as_tensor(i_b).cpu(),
+                      tol)
+
+
+def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
+    """The int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
+    (benchmarks/kb_10m.py --n 1000000, device store): KnowledgeBase(quant=
+    True, device=device) ingests 1M chunks x 1024 of the 1024-center
+    mixture in blocks of 131072 through add_chunks, build_ivf() packs the
+    int8 partition (4096 lists), then hybrid_ivf requests at b=32 and b=8
+    and hybrid requests at b=32 (every kernel's launch count reset just
+    before, read just after). One warm-up request of each mode has its
+    kernel calls recorded for the replays. Then: recall@10 of mode 'ivf'
+    against the full probe, the same IVF on the CPU (plain versions),
+    1000 chunks added after the build (the tail goes through K1) and one
+    profiled hybrid_ivf request."""
+    from tpurag_torch import KnowledgeBase
+    from tpurag_torch.core.config import EngineConfig
+    from tpurag_torch.core.types import Chunk
+    from tpurag_torch.kernels import ivf_scan as ivf_mod
+    from tpurag_torch.kernels import quant as quant_mod
+    from tpurag_torch.kernels.runtime import launch_counts, round_up
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = EngineConfig()
+    cfg = dataclasses.replace(
+        cfg, device=dataclasses.replace(
+            cfg.device, min_capacity=int(round_up(N_IVF, 2048))),
+        ivf=dataclasses.replace(cfg.ivf, n_lists=N_LISTS_IVF))
+    kb = KnowledgeBase("ivf", dim=DIM, config=cfg, quant=True, device=device)
+    centers, blocks = ivf_corpus(N_IVF, DIM, N_CENTERS_IVF)
+    t0 = time.perf_counter()
+    for s, e, blk in blocks:
+        kb.add_chunks([Chunk(text=f"c{i} t{i % 997} z{i % 89}",
+                             doc_id=f"d{i >> 7}", doc_name=f"doc{i >> 7}")
+                       for i in range(s, e)], vectors=blk)
+    sync()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf = kb.build_ivf()
+    sync()
+    build_s = time.perf_counter() - t0
+    assert len(kb) == N_IVF and ivf.emb_ivf_q8 is not None
+    assert ivf.emb_ivf is not None and ivf.align == 8, ivf.align
+    nprobe = int(np.ceil(ivf.config.n_probe * ivf.nprobe_scale))
+    log(f"[ivf] ingest {N_IVF} x {DIM} (quant) through add_chunks: "
+        f"{ingest_s:.2f}s; build_ivf: {build_s:.2f}s, n_lists "
+        f"{ivf.n_lists}, c_max {ivf.c_max}, align {ivf.align}, default "
+        f"nprobe {nprobe} ({card})")
+
+    qv, qtexts = ivf_queries(centers, B_IVF)
+    calls = {n: [] for n in ("dense_scan_q8", "ivf_probe_topk",
+                             "gather_scores")}
+    with recording(ivf_mod, "ivf_probe_topk", calls["ivf_probe_topk"]), \
+            recording(quant_mod, "gather_scores", calls["gather_scores"]):
+        kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid_ivf", vectors=qv)
+    with recording(quant_mod, "dense_scan_q8", calls["dense_scan_q8"]):
+        kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid", vectors=qv)
+    sync()
+
+    for fn in kernels:
+        launch_counts[fn.__name__] = 0
+    lat: dict[str, list] = {}
+    answers = []
+    for name, mode, b in (("hybrid_ivf b=32", "hybrid_ivf", B_IVF),
+                          ("hybrid_ivf b=8", "hybrid_ivf", 8),
+                          ("hybrid b=32", "hybrid", B_IVF)):
+        lat[name] = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            res = kb.search_batch(qtexts[:b], top_k=K_IVF, mode=mode,
+                                  vectors=qv[:b])
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+            answers.append(res)
+    launches = {fn.__name__: launch_counts[fn.__name__] for fn in kernels}
+    for res in answers:
+        for r in res:
+            ids = [x.chunk_id for x in r.results]
+            assert 0 < len(ids) <= K_IVF and len(set(ids)) == len(ids)
+            assert all(np.isfinite(x.score) for x in r.results)
+    log(f"[ivf] 4 x search_batch each of hybrid_ivf b=32, hybrid_ivf b=8, "
+        f"hybrid b=32 (top_k={K_IVF}): launches {launches} ({card})")
+
+    # Recall@10 of mode 'ivf' at the default probe count against the full
+    # probe over the same int8 layout (kb_10m.py's accounting).
+    got = kb.search_batch(qtexts, top_k=K_IVF, mode="ivf", vectors=qv)
+    got = [[x.chunk_id for x in r.results] for r in got]
+    _, oracle = ivf.search(qv, K_IVF, nprobe=ivf.n_lists)
+    oracle = oracle.cpu().numpy()
+    recall = float(np.mean([len(set(g) & set(o.tolist())) / K_IVF
+                            for g, o in zip(got, oracle)]))
+    assert recall >= 0.95, f"ivf recall@10 {recall} below 0.95"
+    log(f"[ivf] mode 'ivf' recall@{K_IVF} at nprobe {nprobe} against "
+        f"nprobe {ivf.n_lists}: {recall:.4f} ({B_IVF} queries) ({card})")
+
+    # The same partition on the CPU: the plain versions give the same ids.
+    cpu = copy.copy(ivf)
+    cpu.device = torch.device("cpu")
+    for attr in ("centroids", "emb_ivf", "row_ids", "cluster_starts",
+                 "cluster_counts", "emb_ivf_q8", "cluster_scales"):
+        setattr(cpu, attr, getattr(ivf, attr).cpu())
+    t0 = time.perf_counter()
+    g_v, g_i = ivf.search(qv, K_IVF + 1)
+    c_v, c_i = cpu.search(qv, K_IVF + 1)
+    err = ids_agree(g_v[:, :K_IVF], g_i[:, :K_IVF], c_v, c_i, 1e-5)
+    log(f"[ivf] the partition moved to the CPU (plain versions): top-"
+        f"{K_IVF} ids equal to the card's but at near ties, max |dscore| "
+        f"{err:.3e} ({time.perf_counter() - t0:.1f}s) ({card})")
+    del cpu
+
+    # 1000 chunks after the build: below the refresh threshold, so they
+    # stay in the tail that K1 scans exactly.
+    tail_rng = np.random.default_rng(7)
+    tail = centers[tail_rng.integers(0, len(centers), 1000)] + np.float32(
+        NOISE_IVF / np.sqrt(DIM)) * tail_rng.standard_normal(
+            (1000, DIM)).astype(np.float32)
+    kb.add_chunks([Chunk(text=f"fresh{j}", doc_id="fresh")
+                   for j in range(1000)], vectors=tail)
+    assert kb._ivf_built_at == N_IVF and kb._ivf_refresh_thread is None
+    q_tail = qv.copy()
+    q_tail[0] = tail[123] / np.linalg.norm(tail[123])
+    launch_counts["dense_topk"] = 0
+    res = kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid_ivf",
+                          vectors=q_tail)
+    tail_launches = launch_counts["dense_topk"]
+    assert tail_launches >= 1 or device != "cuda", "the tail missed K1"
+    assert N_IVF + 123 in [x.chunk_id for x in res[0].results]
+    log(f"[ivf] 1000 chunks after the build (tail): one hybrid_ivf request "
+        f"launched K1 {tail_launches} time(s) and found a tail row ({card})")
+
+    profile = device_profile(lambda: kb.search_batch(
+        qtexts, top_k=K_IVF, mode="hybrid_ivf", vectors=qv)) \
+        if device == "cuda" else None
+    return {"launches": launches, "lat": lat, "ingest_s": ingest_s,
+            "build_s": build_s, "calls": calls, "profile": profile,
+            "recall": recall, "nprobe": nprobe, "kb": kb, "qv": qv,
+            "tail_launches": tail_launches}
+
+
+def replay_q8(calls) -> dict:
+    """K5 on the main path's own inputs: bit-identical to its plain
+    version, and the summed times of the kernel, its plain version and
+    torch._int_mm(q8, e8.T) followed by the row scale and topk."""
+    from tpurag_torch.kernels.quant import dense_scan_q8, dense_scan_q8_ref
+
+    ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    shapes = []
+    for args, _ in calls:
+        v_k, i_k = dense_scan_q8(*args)
+        v_r, i_r = dense_scan_q8_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K5 replay"
+        del v_r, i_r
+        ms += cuda_ms(lambda: dense_scan_q8(*args))
+        plain_ms += cuda_ms(lambda: dense_scan_q8_ref(*args))
+        q8, _, e8, es, n_valid, k = args
+        live, scale = e8[:n_valid], es[:n_valid]
+        lib_ms += cuda_ms(lambda: torch.topk(
+            torch._int_mm(q8, live.T).float() * scale, k))
+        b, d = q8.shape
+        nbytes += b * d + n_valid * (d + 4) + b * 4 + b * k * 8
+        ops += 2 * b * n_valid * d
+        shapes.append(f"{b}x{n_valid}x{d} k={k}")
+    return {"ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms,
+            "shapes": shapes, "bound": bound_ms(nbytes, ops, INT8_OPS_S)}
+
+
+def replay_ivf(calls) -> dict:
+    """K6 on the main path's own inputs: int8 bit-identical to its plain
+    version (scores before the query scale, and ids), and the summed
+    times. The bound counts the rows these probes hold."""
+    from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
+                                               ivf_probe_topk_ref)
+
+    ms = plain_ms = nbytes = ops = 0.0
+    shapes = []
+    for args, kw in calls:
+        v_k, i_k = ivf_probe_topk(*args, **kw)
+        v_r, i_r = ivf_probe_topk_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K6 replay"
+        ms += cuda_ms(lambda: ivf_probe_topk(*args, **kw))
+        plain_ms += cuda_ms(lambda: ivf_probe_topk_ref(*args, **kw))
+        q, emb, starts, counts, k = args
+        b, d = q.shape
+        rows = int(counts.sum().item())
+        nbytes += (rows * d * emb.element_size() + b * d * q.element_size()
+                   + starts.numel() * 12 + b * k * 8)
+        ops += 2 * rows * d
+        shapes.append(f"b={b} nprobe={starts.shape[1]} rows={rows} k={k}")
+    return {"ms": ms, "plain_ms": plain_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, ops, INT8_OPS_S)}
+
+
+def replay_gather(calls) -> dict:
+    """K8 on the main path's own inputs: within 1e-5 of its plain version
+    on live candidates, and the summed times."""
+    from tpurag_torch.kernels.quant import gather_scores, gather_scores_ref
+
+    err = ms = plain_ms = nbytes = ops = 0.0
+    shapes = []
+    for args, _ in calls:
+        q, emb, ids = args
+        got = gather_scores(*args)
+        want = gather_scores_ref(*args)
+        torch.cuda.synchronize()
+        live = ids >= 0
+        if live.any():
+            err = max(err, (got - want)[live].abs().max().item())
+        assert err <= 1e-5, f"K8 replay differs by {err}"
+        ms += cuda_ms(lambda: gather_scores(*args))
+        plain_ms += cuda_ms(lambda: gather_scores_ref(*args))
+        b, d = q.shape
+        n_live = int(live.sum().item())
+        nbytes += n_live * d * emb.element_size() + b * d * 4 + ids.numel() * 8
+        ops += 2 * n_live * d
+        shapes.append(f"{b}x{ids.shape[1]}")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
+
+
+def check_ivf_bf16(kb, qv, card: str) -> dict:
+    """K6's bf16 form at phase 8's probe shapes: a bf16 IVF of the first
+    100k rows of the KB (n_lists scaled so clusters keep the 1M
+    partition's mean size), probed by the phase's queries at the default
+    nprobe; held to its plain version within TOL (ids equal but at near
+    ties) and timed."""
+    from tpurag_torch.index.ivf import IVFIndex
+    from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
+                                               ivf_probe_topk_ref,
+                                               probe_clusters)
+
+    n = 100_000
+    cfg = dataclasses.replace(kb.config.ivf,
+                              n_lists=N_LISTS_IVF * n // N_IVF)
+    t0 = time.perf_counter()
+    sub = IVFIndex(cfg, device="cuda").build_streaming(
+        kb.dense.get_rows, n, dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+    nprobe = int(np.ceil(cfg.n_probe * sub.nprobe_scale))
+    q = torch.from_numpy(qv).cuda()
+    probe = probe_clusters(q, sub.centroids, nprobe)
+    starts = sub.cluster_starts[probe].int()
+    counts = sub.cluster_counts[probe].int()
+    args = (q, sub.emb_ivf, starts, counts)
+    v_k, i_k = ivf_probe_topk(*args, K_IVF)
+    v_r, i_r = ivf_probe_topk_ref(*args, K_IVF + 1)
+    torch.cuda.synchronize()
+    err = topk_agree(v_k, i_k, v_r, i_r)
+    ms = cuda_ms(lambda: ivf_probe_topk(*args, K_IVF))
+    plain_ms = cuda_ms(lambda: ivf_probe_topk_ref(*args, K_IVF))
+    rows = int(counts.sum().item())
+    log(f"[K6] bf16 form on a {n}-row bf16 IVF ({sub.n_lists} lists, built "
+        f"in {build_s:.1f}s), b={len(qv)} nprobe={nprobe} rows={rows}: "
+        f"max|dscore|={err:.3e} against the plain version; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rows * DIM * 2 / HBM_BYTES_S * 1e3:.4f} ms (bytes) ({card})")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def q8_standalone(kb, card: str) -> dict:
+    """K5 beside K1 on the phase's 1M-row KB at 512 queries, k=8, and the
+    library call torch._int_mm(q8, e8.T) then the row scale and topk, at
+    b=32 (k=20, the rescore's overfetch) and b=512."""
+    from tpurag_torch.kernels.dense import dense_topk
+    from tpurag_torch.kernels.quant import dense_scan_q8, quantize_rows
+
+    dense = kb.dense
+    n = dense.n_active
+    rng = np.random.default_rng(11)
+    out = {}
+    for b, k in ((B_IVF, 2 * K_IVF), (512, 8)):
+        q = torch.from_numpy(unit_rows(rng, b, DIM)).cuda()
+        q8, qs = quantize_rows(q)
+        e8, es = dense._q8[:n], dense._qscale[:n]
+        ms = cuda_ms(lambda: dense_scan_q8(q8, qs, dense._q8, dense._qscale,
+                                           n, k))
+        lib = cuda_ms(lambda: torch.topk(
+            torch._int_mm(q8, e8.T).float() * es, k))
+        k1 = cuda_ms(lambda: dense_topk(q, dense.embeddings, n, k))
+        nbytes = b * DIM + n * (DIM + 4) + b * k * 8
+        bound = bound_ms(nbytes, 2 * b * n * DIM, INT8_OPS_S)
+        out[b] = {"ms": ms, "lib_ms": lib, "k1_ms": k1, "bound": bound}
+        log(f"[K5] standalone b={b} x {n} x {DIM} int8 k={k}: kernel "
+            f"{ms:.3f} ms, torch._int_mm + scale + topk {lib:.3f} ms, K1 "
+            f"(bf16) at the same shape {k1:.3f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}) ({card})")
+    return out
+
+
 # Each port kernel's device functions (K3's rows up to one block's shared
 # memory run K2's body with FULL = true: merge_segsum_kernel<PACKED, FULL>).
+# dense_merge_kernel serves K1 and K5 alike; phase 8's profiled request
+# runs only K1 of the two.
 PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "row_max_kernel": "K3", "tile_merge_kernel": "K3",
                 "global_stage_kernel": "K3", "full_segsum_kernel": "K3",
-                "combine_topk_kernel": "K4"}
+                "combine_topk_kernel": "K4", "ivf_scan_kernel": "K6",
+                "ivf_merge_kernel": "K6", "gather_scores_kernel": "K8"}
 
 
 def port_kernel(name: str):
-    """The port kernel (K1..K4) a device function belongs to, or None."""
+    """The port kernel (K1..K8) a device function belongs to, or None."""
+    if re.match(r"dense_scan_kernel<\s*(signed char|char|int8_t)\s*>", name):
+        return "K5"
     m = re.match(r"merge_segsum_kernel<\s*(?:\(bool\))?\w+,\s*"
                  r"(?:\(bool\))?(\w+)\s*>", name)
     if m:
@@ -693,6 +1167,8 @@ def main() -> int:
     from tpurag_torch.kernels.bm25_merge import (merge_segsum_full,
                                                  merge_segsum_topk)
     from tpurag_torch.kernels.dense import dense_topk
+    from tpurag_torch.kernels.ivf_scan import ivf_probe_topk
+    from tpurag_torch.kernels.quant import dense_scan_q8, gather_scores
     from tpurag_torch.kernels.runtime import load_kernels
 
     t_start = time.perf_counter()
@@ -831,7 +1307,76 @@ def main() -> int:
         f"{ {n: c / 4 for n, c in launches.items()} }; ingest "
         f"{wide['ingest_s']:.2f}s ({card})")
 
-    log(f"[total] {time.perf_counter() - t_start:.1f}s")
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 8. the int8 + IVF slice at 1M --------------------------------------------
+    for args in ((32, 20480, 20000, DIM, 20), (512, 8192, 8000, DIM, 8),
+                 (5, 300, 20, 48, 40), (3, 1000, 1000, 64, 600)):
+        check_q8(*args, seed=args[0] + args[-1])
+    err8 = max(check_gather(B_IVF, 2 * K_IVF, 50_000, DIM, seed=1),
+               check_gather(7, 16, 300, DIM, torch.float32, seed=2),
+               check_gather(3, 5, 100, 37, seed=3))
+    err6 = 0.0
+    for args in ((B_IVF, 4096, 72, DIM, 2 * K_IVF, torch.int8),
+                 (8, 64, 64, 256, 10, torch.int8),
+                 (5, 40, 3, 40, 50, torch.int8),
+                 (B_IVF, 4096, 72, DIM, K_IVF, torch.bfloat16),
+                 (4, 30, 6, 36, 8, torch.bfloat16),
+                 (6, 50, 10, 64, 12, torch.float32)):
+        err6 = max(err6, check_ivf(*args, seed=args[0] + args[4]))
+    log(f"[K5] 4 shapes (k up to 600, k > n_valid, unaligned D) bit-identical "
+        f"to the plain version; [K6] int8 bit-identical, bf16 / fp32 "
+        f"max|dscore|={err6:.3e} at 6 shapes (empty and small clusters); "
+        f"[K8] max|dscore|={err8:.3e} at 3 shapes ({card})")
+    ivf_kernels = kernels + (dense_scan_q8, ivf_probe_topk, gather_scores)
+    iv = drive_ivf("cuda", ivf_kernels, card)
+    ivf_launches = iv["launches"]
+    # Each query holds one narrow and one wide term: its one-term narrow
+    # row needs no merge, so the keyword leg runs K4 alone.
+    for name in ("ivf_probe_topk", "gather_scores", "dense_scan_q8",
+                 "combine_topk"):
+        assert ivf_launches[name] > 0, f"{name} was not launched in phase 8"
+    k5 = replay_q8(iv["calls"]["dense_scan_q8"])
+    k6 = replay_ivf(iv["calls"]["ivf_probe_topk"])
+    k8 = replay_gather(iv["calls"]["gather_scores"])
+    err8 = max(err8, k8["err"])
+    del iv["calls"]
+    for name, r, lib in (("K5", k5, "torch._int_mm + scale + topk "
+                                    f"{k5['lib_ms']:.3f} ms, "),
+                         ("K6", k6, ""), ("K8", k8, "")):
+        log(f"[{name}] one request's {len(r['shapes'])} launch(es) on the 1M "
+            f"path ({', '.join(r['shapes'])}) held to the plain version: "
+            f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, {lib}"
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) ({card})")
+    q8_standalone(iv["kb"], card)
+    bf = check_ivf_bf16(iv["kb"], iv["qv"], card)
+    err6 = max(err6, bf["err"])
+    prof = iv["profile"]
+    if prof["busy_ms"] > 0:
+        log(f"[perf] ivf: one profiled hybrid_ivf request (b={B_IVF}, with "
+            f"the 1000-row tail): wall {prof['wall_ms']:.2f} ms, device busy "
+            f"{prof['busy_ms']:.3f} ms, idle share "
+            f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; busiest: "
+            + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
+        log("[perf] ivf: device ms by port kernel in the profiled request: "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items()))
+    else:
+        log("[perf] ivf: device busy time not measured (the profiler "
+            "recorded no device events)")
+    log("[perf] ivf: search_batch p50 " + "; ".join(
+        f"{name} {statistics.median(v):.2f} ms (requests: "
+        f"{', '.join(f'{x:.2f}' for x in v)})" for name, v in iv["lat"].items())
+        + f"; launches per request (12 requests) "
+        f"{ {n: c / 12 for n, c in ivf_launches.items()} }; ingest "
+        f"{iv['ingest_s']:.2f}s, build_ivf {iv['build_s']:.2f}s, recall@10 "
+        f"{iv['recall']:.4f} ({card})")
+    del iv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[total] {time.perf_counter() - t_start:.1f}s ({card})")
     log(json.dumps({"kernels": [
         {"name": "dense_topk", "route": "cuda",
          "source": "tpurag_torch/csrc/dense_topk.cu",
@@ -860,6 +1405,27 @@ def main() -> int:
          "launches": launches["combine_topk"], "max_abs_err": 0.0,
          "ms": k4["ms"], "plain_ms": k4["plain_ms"],
          "bound_ms": k4["bound"][0], "bound_by": k4["bound"][1],
+         "library_ms": None},
+        {"name": "dense_scan_q8", "route": "cuda",
+         "source": "tpurag_torch/csrc/dense_topk.cu",
+         "replaces": "tpurag/kernels/quant.py:80",
+         "launches": ivf_launches["dense_scan_q8"], "max_abs_err": 0.0,
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound"][0], "bound_by": k5["bound"][1],
+         "library_ms": k5["lib_ms"]},
+        {"name": "ivf_probe_topk", "route": "cuda",
+         "source": "tpurag_torch/csrc/ivf_probe.cu",
+         "replaces": "tpurag/kernels/ivf_scan.py:236",
+         "launches": ivf_launches["ivf_probe_topk"], "max_abs_err": err6,
+         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1],
+         "library_ms": None},
+        {"name": "gather_scores", "route": "cuda",
+         "source": "tpurag_torch/csrc/gather_scores.cu",
+         "replaces": "tpurag/kernels/quant.py:213",
+         "launches": ivf_launches["gather_scores"], "max_abs_err": err8,
+         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+         "bound_ms": k8["bound"][0], "bound_by": k8["bound"][1],
          "library_ms": None},
     ]}))
     log(card)

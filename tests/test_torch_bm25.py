@@ -28,6 +28,7 @@ from tpurag_torch.core.config import BM25Config
 from tpurag_torch.index.inverted import InvertedIndex, packed_cbits
 from tpurag_torch.kernels import bm25_merge
 from tpurag_torch.kernels.bm25_merge import merge_segsum_topk_ref
+from tpurag_torch.kernels.runtime import launch_counts
 
 
 @pytest.mark.parametrize("cbits", [0, 12, 20])
@@ -52,13 +53,13 @@ def test_merge_ref_matches_pallas_interpret(t, p, cbits):
 
 def test_merge_wrapper_cpu_path_and_launch_count():
     doc, con = chip_smoke.merge_rows(np.random.default_rng(0), 3, 4, 16, 500)
-    before = bm25_merge.merge_segsum_topk.launches
+    before = launch_counts["merge_segsum_topk"]
     got = bm25_merge.merge_segsum_topk(torch.from_numpy(doc),
                                        torch.from_numpy(con), 8, 16, 4, 0)
     want = merge_segsum_topk_ref(torch.from_numpy(doc),
                                  torch.from_numpy(con), 8, 16, 4, 0)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert bm25_merge.merge_segsum_topk.launches == before  # no kernel on CPU
+    assert launch_counts["merge_segsum_topk"] == before  # no kernel on CPU
 
 
 def test_packed_cbits_matches_jax():
@@ -151,12 +152,12 @@ def test_rows_past_merge_limit_take_segsum_path():
     jidx, tidx = _pair()
     for idx in (jidx, tidx):
         idx.add_batch(range(n), texts)
-    before = bm25_merge.merge_segsum_topk.launches
+    before = launch_counts["merge_segsum_topk"]
     wv, wi = jidx.search([" ".join(common)], 8)
     gv, gi = tidx.search([" ".join(common)], 8)
     np.testing.assert_allclose(gv, wv, rtol=1e-4)
     np.testing.assert_array_equal(gi, wi)
-    assert bm25_merge.merge_segsum_topk.launches == before
+    assert launch_counts["merge_segsum_topk"] == before
 
 
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
@@ -212,7 +213,7 @@ def test_packed_default_scores_close_to_exact():
     np.testing.assert_allclose(pv, ev, rtol=1e-4)
 
 
-def test_wide_term_query_raises():
+def test_wide_kernel_wrappers_reject_unsupported_device():
     """The wide-term path's kernel wrappers raise on a device they have
     no kernel for, rather than giving way to their plain versions."""
     from tpurag_torch.kernels.bm25_join import combine_topk

@@ -33,7 +33,7 @@ from tpurag_torch.core.config import BM25Config
 from tpurag_torch.index.inverted import InvertedIndex, full_cbits
 from tpurag_torch.kernels import bm25_join, bm25_merge
 from tpurag_torch.kernels.bm25_merge import merge_segsum_full_ref
-from tpurag_torch.kernels.runtime import NEG_INF
+from tpurag_torch.kernels.runtime import NEG_INF, launch_counts
 from tpurag_torch.kernels.sortmerge import merge_sorted_lists
 
 _BIG = 2**30
@@ -73,12 +73,12 @@ def _assert_same_search(jidx, tidx, queries, k=10):
 ], ids=["mixed", "wide_only", "batch"])
 def test_wide_queries_match_jax(queries):
     jidx, tidx = _pair(_corpus())
-    before = (bm25_merge.merge_segsum_full.launches,
-              bm25_join.combine_topk.launches)
+    before = (launch_counts["merge_segsum_full"],
+              launch_counts["combine_topk"])
     _assert_same_search(jidx, tidx, queries)
     # The CPU path runs the plain versions: no kernel launch is counted.
-    assert (bm25_merge.merge_segsum_full.launches,
-            bm25_join.combine_topk.launches) == before
+    assert (launch_counts["merge_segsum_full"],
+            launch_counts["combine_topk"]) == before
 
 
 def test_delete_then_wide_search_matches_jax():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tpurag_torch.kernels.runtime import launch_counts
 
 
 @pytest.fixture
@@ -32,23 +33,19 @@ def cuda():
     (3, 1000, 1000, 64, 600, torch.bfloat16),  # lists in device memory
 ])
 def test_dense_kernel_matches_plain(cuda, b, n_rows, n_valid, d, k, dtype):
-    from tpurag_torch.kernels.dense import dense_topk
-
-    before = dense_topk.launches
+    before = launch_counts["dense_topk"]
     err, _, _ = chip_smoke.check_dense(b, n_rows, n_valid, d, k, dtype)
     assert err <= chip_smoke.TOL
-    assert dense_topk.launches == before + 1
+    assert launch_counts["dense_topk"] == before + 1
 
 
 @pytest.mark.parametrize("t", [1, 2, 8])
 @pytest.mark.parametrize("p", [16, 64, 2048])
 @pytest.mark.parametrize("cbits", [0, 14])
 def test_merge_kernel_matches_plain(cuda, t, p, cbits):
-    from tpurag_torch.kernels.bm25_merge import merge_segsum_topk
-
-    before = merge_segsum_topk.launches
+    before = launch_counts["merge_segsum_topk"]
     chip_smoke.check_merge(64, t, p, cbits, k=8, n_docs=5000, seed=t * p)
-    assert merge_segsum_topk.launches == before + 1
+    assert launch_counts["merge_segsum_topk"] == before + 1
 
 
 def test_kb_on_card_matches_cpu(cuda):
@@ -79,22 +76,18 @@ def test_kb_on_card_matches_cpu(cuda):
     (2, 32768, 12),   # W = 65536 packed
 ])
 def test_full_merge_kernel_matches_plain(cuda, t, p, cbits):
-    from tpurag_torch.kernels.bm25_merge import merge_segsum_full
-
-    before = merge_segsum_full.launches
+    before = launch_counts["merge_segsum_full"]
     chip_smoke.check_full(8, t, p, cbits, n_docs=200_000, seed=t * p)
-    assert merge_segsum_full.launches == before + 1
+    assert launch_counts["merge_segsum_full"] == before + 1
 
 
 @pytest.mark.parametrize("wn,ww,k", [
     (64, 128, 8), (2048, 4096, 40), (16384, 65536, 8), (65536, 32768, 8),
 ])
 def test_combine_kernel_matches_plain(cuda, wn, ww, k):
-    from tpurag_torch.kernels.bm25_join import combine_topk
-
-    before = combine_topk.launches
+    before = launch_counts["combine_topk"]
     chip_smoke.check_combine(16, wn, ww, k, n_docs=200_000, seed=wn + ww)
-    assert combine_topk.launches == before + 1
+    assert launch_counts["combine_topk"] == before + 1
 
 
 def test_wide_term_index_on_card_matches_cpu(cuda):
@@ -116,3 +109,77 @@ def test_wide_term_index_on_card_matches_cpu(cuda):
     (gv, gi), (cv, ci) = (x.search(queries, 10) for x in idx)
     np.testing.assert_array_equal(gi, ci)
     np.testing.assert_allclose(gv, cv, rtol=1e-6)
+
+
+@pytest.mark.parametrize("b,n_rows,n_valid,d,k", [
+    (32, 20480, 20000, 1024, 20),
+    (512, 8192, 8000, 1024, 8),
+    (5, 300, 20, 48, 40),       # k > n_valid, unaligned D
+    (3, 1000, 1000, 64, 600),   # lists in device memory
+])
+def test_int8_scan_kernel_matches_plain(cuda, b, n_rows, n_valid, d, k):
+    before = launch_counts["dense_scan_q8"]
+    chip_smoke.check_q8(b, n_rows, n_valid, d, k, seed=b + k)
+    assert launch_counts["dense_scan_q8"] == before + 1
+
+
+@pytest.mark.parametrize("b,m,n,d,dtype", [
+    (32, 20, 5000, 1024, torch.bfloat16),
+    (7, 16, 300, 1024, torch.float32),
+    (3, 5, 100, 37, torch.bfloat16),   # unaligned D
+])
+def test_gather_scores_kernel_matches_plain(cuda, b, m, n, d, dtype):
+    before = launch_counts["gather_scores"]
+    chip_smoke.check_gather(b, m, n, d, dtype, seed=b)
+    assert launch_counts["gather_scores"] == before + 1
+
+
+@pytest.mark.parametrize("b,n_lists,n_probe,d,k,dtype", [
+    (32, 256, 64, 1024, 20, torch.int8),
+    (8, 64, 64, 256, 10, torch.int8),      # every cluster probed
+    (5, 40, 3, 40, 50, torch.int8),        # unaligned D, k > rows
+    (32, 256, 64, 1024, 10, torch.bfloat16),
+    (4, 30, 6, 36, 8, torch.bfloat16),     # unaligned D
+    (6, 50, 10, 64, 12, torch.float32),
+])
+def test_ivf_probe_kernel_matches_plain(cuda, b, n_lists, n_probe, d, k,
+                                        dtype):
+    before = launch_counts["ivf_probe_topk"]
+    err = chip_smoke.check_ivf(b, n_lists, n_probe, d, k, dtype, seed=k)
+    assert err <= chip_smoke.TOL
+    assert launch_counts["ivf_probe_topk"] == before + 1
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_ivf_kb_on_card_matches_cpu(cuda, quant, tmp_path):
+    from tpurag_torch import KnowledgeBase
+    from tpurag_torch.core.config import EngineConfig, IVFConfig
+
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((16, 64)).astype(np.float32) * 3
+    vecs = (centers[rng.integers(0, 16, 3000)]
+            + rng.standard_normal((3000, 64)).astype(np.float32))
+    cfg = EngineConfig(ivf=IVFConfig(n_lists=16, n_probe=4, kmeans_iters=4))
+    kbs = [KnowledgeBase("t", dim=64, config=cfg, quant=quant, device=dev)
+           for dev in ("cuda", "cpu")]
+    from tpurag_torch.core.types import Chunk
+
+    for kb in kbs:
+        kb.add_chunks([Chunk(text=f"c{i} t{i % 97}" + " pad" * (i % 61),
+                             doc_id=f"d{i}") for i in range(3000)],
+                      vectors=vecs)
+        kb.build_ivf()
+        kb.add_chunks([Chunk(text=f"tail{i}", doc_id="tail")
+                       for i in range(10)], vectors=vecs[:10] + 0.5)
+    q = vecs[rng.integers(0, 3000, 24)] + rng.standard_normal(
+        (24, 64)).astype(np.float32)
+    kbs[0].save(tmp_path / "kb")  # quant and the IVF survive a reload
+    kbs.append(KnowledgeBase.load(tmp_path / "kb", device="cuda"))
+    assert kbs[2].quant == quant and kbs[2]._ivf is not None
+    for mode in ("vector", "hybrid", "ivf", "hybrid_ivf"):
+        got, want, back = (kb.search_batch([f"t{i}" for i in range(24)],
+                                           mode=mode, vectors=q, top_k=5)
+                           for kb in kbs)
+        for g, w, r in zip(got, want, back):
+            assert [x.chunk_id for x in g.results] == [x.chunk_id for x in w.results]
+            assert [x.chunk_id for x in r.results] == [x.chunk_id for x in g.results]

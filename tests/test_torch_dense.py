@@ -126,6 +126,7 @@ def test_dense_index_save_load_across_packages(tmp_path, dtype, direction):
 
 
 def test_dense_index_options_not_ported_raise():
-    for kw in ({"quant": True}, {"store": "host"}, {"mesh": object()}):
+    for kw in ({"store": "host"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             DenseIndex(16, device="cpu", **kw)
+    assert DenseIndex(16, device="cpu", quant=True).quant  # ported

@@ -129,16 +129,14 @@ def test_single_search_and_dispatch_match():
 
 
 def test_kb_options_not_ported_raise():
-    for kw in ({"quant": True}, {"store": "host"}, {"mesh": object()}):
+    for kw in ({"store": "host"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             tpurag_torch.KnowledgeBase("x", device="cpu", **kw)
     kb = tpurag_torch.KnowledgeBase("x", device="cpu")
     kb.add_document("a", "alpha beta gamma")
-    for mode in ("ivf", "hybrid_ivf"):
-        with pytest.raises(NotImplementedError):
+    for mode in ("ivf", "hybrid_ivf"):  # ported; they need build_ivf()
+        with pytest.raises(ValueError, match="build_ivf"):
             kb.search("alpha", mode=mode)
-    with pytest.raises(NotImplementedError):
-        kb.build_ivf()
     with pytest.raises(ValueError):
         kb.search("alpha", mode="bogus")
     with pytest.raises(NotImplementedError):

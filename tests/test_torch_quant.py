@@ -1,0 +1,223 @@
+"""tpurag_torch's int8 path (kernels/quant.py, DenseIndex(quant=True))
+against the JAX package.
+
+Inputs are made from numpy seeds and handed to both packages. The plain
+versions of K5 (dense_scan_q8_ref) and K8 (gather_scores_ref) are held to
+JAX's Pallas kernels in interpret mode and to their XLA forms: K5's exact
+int arithmetic makes values and ids bit-identical; K8's fp32 dots agree
+within 1e-6 (another summation order). DenseIndex parity uses
+integer-valued vectors, whose norms are exact in any summation order, so
+both packages store the same normalized rows and the int8 sidecars must
+be equal bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpurag.index.dense import DenseIndex as JaxDenseIndex
+from tpurag.kernels import quant as jq
+from tpurag_torch.index.dense import DenseIndex
+from tpurag_torch.kernels.quant import (dense_scan_q8, dense_scan_q8_ref,
+                                        dense_topk_q8, gather_scores,
+                                        gather_scores_ref, quantize_rows,
+                                        rescore_topk)
+
+torch.set_float32_matmul_precision("highest")
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("form", ["fp32", "bf16_rounded", "zero_rows"])
+def test_quantize_rows_bit_identical_to_jax(form):
+    rng = np.random.default_rng(0)
+    x = _unit(rng, 2000, 96) * rng.uniform(0.1, 3.0, (2000, 1)).astype(
+        np.float32)
+    if form == "bf16_rounded":
+        x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    if form == "zero_rows":
+        x[::7] = 0.0
+    want8, want_s = (np.asarray(a) for a in jq.quantize_rows(jnp.asarray(x)))
+    got8, got_s = quantize_rows(_t(x))
+    np.testing.assert_array_equal(got8.numpy(), want8)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    if form == "zero_rows":
+        assert (got_s.numpy()[::7] == 0).all() and (got8.numpy()[::7] == 0).all()
+
+
+def _codes(rng, n, d, b):
+    e8, es = jq.quantize_rows(jnp.asarray(_unit(rng, n, d)))
+    q8, qs = jq.quantize_rows(jnp.asarray(_unit(rng, b, d)))
+    return q8, qs, e8, es
+
+
+@pytest.mark.parametrize("n,d,b,k,n_valid", [
+    (700, 48, 3, 8, 700),
+    (900, 128, 9, 16, 900),
+    (333, 40, 2, 5, 300),     # n_valid < n
+    (256, 32, 4, 12, 5),      # k > n_valid: ids -1
+])
+def test_scan_q8_plain_bit_identical_to_jax(n, d, b, k, n_valid):
+    rng = np.random.default_rng(n + k)
+    q8, qs, e8, es = _codes(rng, n, d, b)
+    pv, pi = jq.dense_topk_pallas_q8(q8, qs, e8, es, jnp.int32(n_valid), k,
+                                     tile_b=8, tile_n=128, interpret=True)
+    xv, xi = jq.dense_topk_xla_q8(q8, qs, e8, es, jnp.int32(n_valid), k)
+    args = tuple(_t(a) for a in (q8, qs, e8, es)) + (n_valid, k)
+    gv, gi = dense_scan_q8_ref(*args)
+    for wv, wi in ((pv, pi), (xv, xi)):
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    if k > n_valid:
+        assert (gi.numpy()[:, n_valid:] == -1).all()
+    # On CPU tensors the K5 wrapper is the plain version.
+    wv, wi = dense_scan_q8(*args)
+    assert torch.equal(wv, gv) and torch.equal(wi, gi)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_scores_plain_matches_jax(dtype):
+    rng = np.random.default_rng(1)
+    n, d, b, m = 256, 128, 5, 6
+    emb, q = _unit(rng, n, d), _unit(rng, b, d)
+    ids = rng.integers(0, n, (b, m)).astype(np.int32)
+    emb_j = jnp.asarray(emb, dtype)
+    want = np.asarray(jq.gather_scores_pallas(jnp.asarray(q), emb_j,
+                                              jnp.asarray(ids), tile_b=4,
+                                              interpret=True))
+    emb_t = _t(np.asarray(emb_j.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = gather_scores_ref(_t(q), emb_t, _t(ids))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    assert torch.equal(gather_scores(_t(q), emb_t, _t(ids)), got)
+
+
+def test_rescore_topk_matches_jax_with_duplicates_and_empties():
+    rng = np.random.default_rng(2)
+    q, emb = _unit(rng, 4, 32), _unit(rng, 200, 32)
+    top12 = np.argsort(-(q @ emb.T), axis=1)[:, :12]
+    cand = np.concatenate([top12[:, ::-1], np.full((4, 1), -1),
+                           top12[:, :3], np.full((4, 2), -1)],
+                          axis=1).astype(np.int32)
+    for k in (5, 16):  # 16 > the 12 distinct candidates: empties
+        wv, wi = jq.rescore_topk(jnp.asarray(q), jnp.asarray(emb),
+                                 jnp.asarray(cand), k)
+        gv, gi = rescore_topk(_t(q), _t(emb), _t(cand), k)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
+        assert len(set(gi.numpy()[0][gi.numpy()[0] >= 0])) == min(k, 12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_topk_q8_with_rescore_matches_jax(dtype):
+    rng = np.random.default_rng(3)
+    n, d, b, k = 600, 64, 6, 10
+    q, emb = _unit(rng, b, d), _unit(rng, n, d)
+    emb_j = jnp.asarray(emb, dtype)
+    e8, es = jq.quantize_rows(emb_j)
+    wv, wi = jq.dense_topk_q8(jnp.asarray(q), e8, es, n, k,
+                              rescore_emb=emb_j, interpret=True)
+    emb_t = _t(np.asarray(emb_j.astype(jnp.float32))).to(getattr(torch, dtype))
+    gv, gi = dense_topk_q8(_t(q), _t(e8), _t(es), n, k, rescore_emb=emb_t)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
+
+
+def test_rescore_never_resurrects_padding_rows():
+    # m > n_valid: the scan's padding columns are empties (-1), so zero
+    # rows never rescore as 0.0 hits above live rows of negative cosine.
+    rng = np.random.default_rng(4)
+    d, n_valid, k = 32, 5, 6
+    emb = np.zeros((128, d), np.float32)
+    q = np.ones((1, d), np.float32) / np.sqrt(d)
+    emb[:n_valid] = -q + 0.01 * rng.standard_normal((n_valid, d))
+    emb[:n_valid] /= np.linalg.norm(emb[:n_valid], axis=1, keepdims=True)
+    e8, es = quantize_rows(_t(emb))
+    gv, gi = dense_topk_q8(_t(q), e8, es, n_valid, k, rescore_emb=_t(emb))
+    wv, wi = jq.dense_topk_q8(jnp.asarray(q), *jq.quantize_rows(
+        jnp.asarray(emb)), n_valid, k, rescore_emb=jnp.asarray(emb),
+        interpret=True)
+    ids = gi.numpy()[0]
+    assert (ids[ids >= 0] < n_valid).all() and (gv.numpy()[0][ids >= 0] < 0).all()
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def _int_vectors(rng, m, d):
+    """Integer-valued rows: their squared norms are exact in any order."""
+    return rng.integers(-8, 9, (m, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_index_add_delete_search_matches_jax(dtype):
+    rng = np.random.default_rng(5)
+    d = 48
+    jidx = JaxDenseIndex(d, dtype=dtype, capacity=128, quant=True)
+    tidx = DenseIndex(d, dtype=dtype, capacity=128, device="cpu", quant=True)
+    for m in (100, 90, 70):  # grows past the initial capacity
+        vecs = _int_vectors(rng, m, d)
+        np.testing.assert_array_equal(jidx.add(vecs), tidx.add(vecs))
+    dead = rng.choice(260, 25, replace=False)
+    jidx.delete(dead)
+    tidx.delete(dead)
+    assert tidx.capacity == jidx.capacity and len(tidx) == len(jidx) == 235
+    np.testing.assert_array_equal(tidx._q8.numpy(), np.asarray(jidx._q8))
+    np.testing.assert_array_equal(tidx._qscale.numpy(),
+                                  np.asarray(jidx._qscale))
+    assert (tidx._qscale.numpy()[dead] == 0).all()
+    np.testing.assert_array_equal(tidx.get_vectors([0, 5, 259]),
+                                  jidx.get_vectors([0, 5, 259]))
+    np.testing.assert_array_equal(tidx.get_rows(3, 9).float().numpy(),
+                                  np.asarray(jidx.get_rows(3, 9), np.float32))
+    q = rng.standard_normal((7, d)).astype(np.float32)
+    for k in (1, 8, 30):
+        wv, wi = jidx.search(q, k)
+        gv, gi = tidx.search(q, k)
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
+        assert not np.isin(gi.numpy(), dead).any()
+
+
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_quant_index_save_load_across_packages(tmp_path, direction):
+    rng = np.random.default_rng(6)
+    d = 40
+    vecs = rng.standard_normal((150, d)).astype(np.float32)
+    q = rng.standard_normal((6, d)).astype(np.float32)
+    src = (JaxDenseIndex(d, quant=True) if direction == "jax_to_torch"
+           else DenseIndex(d, device="cpu", quant=True))
+    src.add(vecs)
+    src.delete([4, 77])
+    src.save(tmp_path / "dense")
+    if direction == "jax_to_torch":
+        dst = DenseIndex.load(tmp_path / "dense", device="cpu", quant=True)
+        np.testing.assert_array_equal(dst._q8.numpy()[:150],
+                                      np.asarray(src._q8)[:150])
+    else:
+        dst = JaxDenseIndex.load(tmp_path / "dense", quant=True)
+        np.testing.assert_array_equal(np.asarray(dst._q8)[:150],
+                                      src._q8.numpy()[:150])
+    assert dst.quant and len(dst) == 148
+    sv, si = src.search(q, 8)
+    dv, di = dst.search(q, 8)
+    np.testing.assert_array_equal(np.asarray(di), np.asarray(si))
+    np.testing.assert_allclose(np.asarray(dv), np.asarray(sv), atol=1e-6)
+
+
+def test_quant_wrappers_reject_unsupported_device():
+    """K5's and K8's wrappers raise on a device they have no kernel for,
+    rather than giving way to their plain versions."""
+    x8 = torch.zeros((2, 8), dtype=torch.int8, device="meta")
+    s = torch.zeros((2,), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dense_scan_q8(x8, s, x8, s, 2, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        gather_scores(torch.zeros((2, 8), device="meta"),
+                      torch.zeros((4, 8), device="meta"),
+                      torch.zeros((2, 3), dtype=torch.int32, device="meta"))

@@ -1,12 +1,12 @@
-# Ported from tpurag/api/knowledge_base.py (single device, device store,
-# modes vector / keyword / hybrid).
+# Ported from tpurag/api/knowledge_base.py (single device, device store).
 """KnowledgeBase, the user-facing facade.
 
-One object owning the dense index, the inverted index and host-side
-chunk metadata, with ingest, hybrid/dense/keyword search and save/load.
-Both indexes live on an explicit ``device`` ("cuda" by default; pass
-"cpu" to run the plain versions of the kernels). The save format is the
-JAX package's, so a KB saved by either package loads in the other.
+One object owning the dense index, the inverted index, an optional IVF
+partition and host-side chunk metadata, with ingest, search in modes
+hybrid / vector / keyword / ivf / hybrid_ivf, and save/load. Every index
+lives on an explicit ``device`` ("cuda" by default; pass "cpu" to run
+the plain versions of the kernels). The save format is the JAX
+package's, so a KB saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import threading
+import traceback
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -23,12 +25,15 @@ from tpurag_torch.core.chunkstore import ChunkStore
 from tpurag_torch.core.config import EngineConfig, HybridPreset, PRESETS
 from tpurag_torch.core.types import Chunk, SearchResponse, SearchResult
 from tpurag_torch.engine.hybrid import decode_bits, hybrid_search
-from tpurag_torch.index.dense import DenseIndex, not_ported
+from tpurag_torch.index.dense import DenseIndex, l2_normalize, not_ported
 from tpurag_torch.index.inverted import InvertedIndex, highlight
+from tpurag_torch.index.ivf import IVFIndex
 from tpurag_torch.ingest.chunker import chunk_text
 from tpurag_torch.ingest.embedder import HashEmbedder
 from tpurag_torch.ingest.tokenizer import tokenize_query
+from tpurag_torch.kernels.dense import dense_topk
 from tpurag_torch.kernels.runtime import NEG_INF
+from tpurag_torch.kernels.topk import merge_topk
 from tpurag_torch.utils.locks import RWLock
 
 Embedder = Callable[[list[str]], np.ndarray]
@@ -47,14 +52,13 @@ class KnowledgeBase:
         backing=None,
         device="cuda",
     ):
-        """device: where both indexes live ("cuda" or "cpu"); nothing
-        falls back to the CPU on its own. mesh / quant / store='host' are
-        the JAX package's options that this port does not have yet."""
+        """device: where the indexes live ("cuda" or "cpu"); nothing
+        falls back to the CPU on its own. quant: int8-sidecar dense scans
+        with an exact rescore (index/dense.py); build_ivf() then packs an
+        int8 partition too. mesh / store='host' are the JAX package's
+        options that this port does not have yet."""
         if mesh is not None:
             raise not_ported("KnowledgeBase(mesh=...) (Queue 1, 'Sharding')")
-        if quant:
-            raise not_ported("KnowledgeBase(quant=True) (Queue 1, "
-                             "'int8 slice')")
         if store != "device" or backing is not None:
             raise not_ported("KnowledgeBase(store='host') (Queue 1, "
                              "'host store')")
@@ -63,12 +67,19 @@ class KnowledgeBase:
         self.embedder = embedder or HashEmbedder(dim or 256)
         self.dim = dim or getattr(self.embedder, "dim", self.config.device.dim)
         self.device = torch.device(device)
+        self.quant = bool(quant)
         self.dense = DenseIndex(self.dim, dtype=self.config.device.dtype,
                                 capacity=self.config.device.min_capacity,
-                                device=self.device)
+                                device=self.device, quant=self.quant)
         self.inverted = InvertedIndex(self.config.bm25, device=self.device)
         self.chunks = ChunkStore()
         self._doc_chunks: dict[str, list[int]] = {}
+        self._ivf: Optional[IVFIndex] = None
+        self._ivf_built_at = 0  # n_active snapshot the IVF was built from
+        self._ivf_seed = 0      # seed of the last build, reused on refresh
+        self._ivf_refreshing = False  # single-flight background rebuild
+        self._ivf_refresh_flag = threading.Lock()
+        self._ivf_refresh_thread: Optional[threading.Thread] = None
         # Searches are READS and run concurrently; mutations take the
         # exclusive side.
         self._mutex = RWLock()
@@ -105,6 +116,7 @@ class KnowledgeBase:
                 assert got == int(cid)
                 self._doc_chunks.setdefault(chunk.doc_id, []).append(int(cid))
             self.inverted.add_batch([int(i) for i in ids], texts)
+            self._maybe_refresh_ivf_locked()
             return [int(i) for i in ids]
 
     def delete_document(self, doc_id: str) -> int:
@@ -170,9 +182,7 @@ class KnowledgeBase:
     def _dispatch_locked(self, queries, p, mode, vectors=None):
         """Queue the device computation for one search batch; returns the
         (scores, ids, bits) triple as device tensors."""
-        if mode in ("ivf", "hybrid_ivf"):
-            raise not_ported(f"mode={mode!r} (Queue 1, 'IVF slice')")
-        if mode not in ("hybrid", "vector", "keyword"):
+        if mode not in ("hybrid", "vector", "keyword", "ivf", "hybrid_ivf"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "keyword":
             qv = None  # the keyword leg never embeds
@@ -182,8 +192,15 @@ class KnowledgeBase:
             qv = self.embedder(queries)
         if mode == "hybrid":
             return hybrid_search(self.dense, self.inverted, qv, queries, p)
-        if mode == "vector":
-            s, i = self.dense.search(qv, p.final_top_k)
+        if mode == "hybrid_ivf":
+            # The >= 1M-corpus hybrid point: the same BM25 leg and RRF as
+            # mode='hybrid', dense candidates from the IVF partition plus
+            # the exact scan of the post-build tail.
+            return hybrid_search(self.dense, self.inverted, qv, queries, p,
+                                 dense_search=self._ivf_leg)
+        if mode in ("vector", "ivf"):
+            s, i = (self.dense.search if mode == "vector"
+                    else self._ivf_leg)(qv, p.final_top_k)
             keep = s >= p.min_vector_score
             ids = torch.where(keep, i, -1)
             return (torch.where(keep, s, NEG_INF), ids,
@@ -191,6 +208,28 @@ class KnowledgeBase:
         scores, ids = self.inverted.search(queries, p.final_top_k,
                                            as_device=True)
         return scores, ids, torch.where(ids >= 0, 2, 0)
+
+    def _ivf_leg(self, qv, k: int):
+        """Dense leg over the IVF partition, k candidates: the probe-scan
+        plus an exact K1 scan of the rows added after the build (the
+        growable-segment design: partition + active tail, compacted by
+        build_ivf()). Returns (scores, ids) on the KB's device."""
+        if self._ivf is None:
+            raise ValueError("no IVF index: call kb.build_ivf() first")
+        s, i = self._ivf.search(qv, k=k)
+        tail = self.dense.n_active - self._ivf_built_at
+        if tail <= 0:
+            return s, i
+        # The capacity slice stays on the device (a view, no copy).
+        tail_emb = self.dense.embeddings[self._ivf_built_at:]
+        kk = min(k, tail)
+        q = l2_normalize(torch.as_tensor(qv).to(self.device))
+        t_s, t_i = dense_topk(q.reshape(-1, self.dim), tail_emb, tail, kk)
+        t_i = torch.where(t_i >= 0, t_i + self._ivf_built_at, -1)
+        if kk < k:
+            t_s = torch.nn.functional.pad(t_s, (0, k - kk), value=NEG_INF)
+            t_i = torch.nn.functional.pad(t_i, (0, k - kk), value=-1)
+        return merge_topk(s, i, t_s, t_i, k)
 
     def _assemble(self, query: str, scores, ids, bits) -> SearchResponse:
         qtoks = tokenize_query(query)
@@ -216,8 +255,72 @@ class KnowledgeBase:
                 stats["by_source"][src] = stats["by_source"].get(src, 0) + 1
         return SearchResponse(results=results, query=query, stats=stats)
 
-    def build_ivf(self, seed: int = 0):
-        raise not_ported("KnowledgeBase.build_ivf (Queue 1, 'IVF slice')")
+    def build_ivf(self, seed: int = 0) -> IVFIndex:
+        """Snapshot the dense corpus into an IVF partition for modes
+        'ivf' and 'hybrid_ivf'; rows added afterwards stay searchable
+        through an exact tail scan until the next rebuild."""
+        with self._mutex.write():
+            n = self.dense.n_active
+            self._ivf = self._build_ivf_partition(n, seed)
+            self._ivf_built_at = n
+            self._ivf_seed = seed
+            return self._ivf
+
+    def _build_ivf_partition(self, n: int, seed: int) -> IVFIndex:
+        """An IVF partition over dense rows [0, n), built without touching
+        KB state: the streaming build reads bounded row blocks through
+        dense.get_rows. Safe outside the lock, since rows below a
+        snapshotted n never move."""
+        return IVFIndex(self.config.ivf, device=self.device).build_streaming(
+            self.dense.get_rows, n, dtype=self.dense.dtype, seed=seed,
+            quant=self.quant)
+
+    # -- IVF auto-refresh ------------------------------------------------------
+
+    def _maybe_refresh_ivf_locked(self) -> None:
+        """Write-lock-held ingest hook: when the exact-scanned tail
+        outgrows the partition by auto_refresh_ratio (and the churn
+        floor), start a single-flight background rebuild."""
+        ratio = self.config.ivf.auto_refresh_ratio
+        if self._ivf is None or not ratio:
+            return
+        tail = self.dense.n_active - self._ivf_built_at
+        if tail < max(self.config.ivf.auto_refresh_min_rows,
+                      ratio * max(self._ivf_built_at, 1)):
+            return
+        with self._ivf_refresh_flag:
+            if self._ivf_refreshing:
+                return
+            self._ivf_refreshing = True
+        t = threading.Thread(target=self._ivf_refresh_worker, daemon=True)
+        self._ivf_refresh_thread = t
+        t.start()
+
+    def _ivf_refresh_worker(self) -> None:
+        try:
+            with self._mutex.read():
+                n = self.dense.n_active
+                if n <= self._ivf_built_at:
+                    return  # raced with a manual build_ivf()
+            # The original build's seed: a refresh keeps the partitions
+            # of a custom-seeded KB reproducible.
+            new_ivf = self._build_ivf_partition(n, seed=self._ivf_seed)
+            with self._mutex.write():
+                if self._ivf_built_at >= n:
+                    return  # a newer partition won the race
+                self._ivf = new_ivf
+                self._ivf_built_at = n
+        except Exception:  # background upkeep: slower searches, no crash
+            traceback.print_exc()
+        finally:
+            with self._ivf_refresh_flag:
+                self._ivf_refreshing = False
+
+    def wait_ivf_refresh(self, timeout: float | None = 30.0) -> None:
+        """Block until any in-flight background IVF rebuild finishes."""
+        t = self._ivf_refresh_thread
+        if t is not None:
+            t.join(timeout=timeout)
 
     # -- persistence -----------------------------------------------------------
 
@@ -229,6 +332,8 @@ class KnowledgeBase:
             d.mkdir(parents=True, exist_ok=True)
             self.dense.save(d / "dense")
             self.inverted.save(d / "inverted")
+            if self._ivf is not None:
+                self._ivf.save(d / "ivf")
             emb_info: dict = {"kind": "custom"}
             if isinstance(self.embedder, HashEmbedder):
                 emb_info = {"kind": "hash", "dim": self.embedder.dim,
@@ -237,7 +342,7 @@ class KnowledgeBase:
             meta = {
                 "name": self.name,
                 "dim": self.dim,
-                "quant": False,
+                "quant": self.quant,
                 "store": "device",
                 # Scoring-semantics config travels with the index.
                 "bm25": {"k1": bm.k1, "b": bm.b,
@@ -246,9 +351,9 @@ class KnowledgeBase:
                          "head_m": bm.head_m,
                          "exact_scoring": bm.exact_scoring},
                 "embedder": emb_info,
-                "ivf": None,
-                "ivf_built_at": 0,
-                "ivf_seed": 0,
+                "ivf": "single" if self._ivf is not None else None,
+                "ivf_built_at": self._ivf_built_at,
+                "ivf_seed": self._ivf_seed,
                 "chunks_file": "chunks.jsonl",
                 "doc_chunks": self._doc_chunks,
             }
@@ -272,9 +377,9 @@ class KnowledgeBase:
                 embedder = HashEmbedder(info["dim"], seed=info.get("seed", 0))
             elif info.get("kind") == "encoder":
                 raise not_ported("loading an encoder KB (Queue 1, 'Encoder')")
-        if meta.get("quant"):
-            raise not_ported("loading a quant=True KB (Queue 1, "
-                             "'int8 slice')")
+        if meta.get("ivf") == "sharded":
+            raise not_ported("loading a sharded IVF partition (Queue 1, "
+                             "'Sharding')")
         if (d / "inverted").is_dir():
             raise not_ported("loading a sharded keyword index (Queue 1, "
                              "'Sharding')")
@@ -282,9 +387,10 @@ class KnowledgeBase:
             base = EngineConfig()
             config = dataclasses.replace(
                 base, bm25=dataclasses.replace(base.bm25, **meta["bm25"]))
+        quant = bool(meta.get("quant", False))
         kb = cls(meta["name"], embedder=embedder, config=config,
-                 dim=meta["dim"], device=device)
-        kb.dense = DenseIndex.load(d / "dense", device=device)
+                 dim=meta["dim"], device=device, quant=quant)
+        kb.dense = DenseIndex.load(d / "dense", device=device, quant=quant)
         kb.inverted = InvertedIndex.load(d / "inverted", kb.config.bm25,
                                          device=device)
         kb.chunks = ChunkStore()
@@ -293,6 +399,12 @@ class KnowledgeBase:
                 kb.chunks.append(Chunk(**json.loads(line)))
         kb._doc_chunks = {k: [int(x) for x in v]
                           for k, v in meta["doc_chunks"].items()}
+        if meta.get("ivf") == "single":
+            kb._ivf = IVFIndex.load(d / "ivf", config=kb.config.ivf,
+                                    dtype=kb.dense.dtype, device=device)
+            kb._ivf_built_at = int(meta.get("ivf_built_at", 0))
+            kb._ivf_seed = int(meta.get("ivf_seed", 0))
+        # else: modes 'ivf' / 'hybrid_ivf' need build_ivf() after load.
         return kb
 
     def __len__(self) -> int:

@@ -1,10 +1,21 @@
-// K1: fused dense cosine top-k for Hopper (sm_90a).
+// K1: fused dense cosine top-k for Hopper (sm_90a), and K5, its int8 form.
 //
-// Replaces the Pallas kernel tpurag/kernels/dense.py:dense_topk_pallas
+// K1 replaces the Pallas kernel tpurag/kernels/dense.py:dense_topk_pallas
 // (body _dense_topk_kernel). Same contract: (B, k) float32 scores
 // descending and int32 ids, ties to the smaller id, corpus rows at or past
 // n_valid never returned, empty slots (NEG_INF, -1), fp32 accumulation of
 // a product taken in the corpus dtype (bf16 or fp32).
+//
+// K5 replaces tpurag/kernels/quant.py:dense_topk_pallas_q8 (the same
+// Pallas body with quant=True): int8 query and corpus codes, an exact
+// int32 product on the int8 tensor cores (WMMA s8, 16x16x16, int
+// accumulators), then one fp32 multiply by the corpus row's scale, and
+// from there K1's running lists, split merge, tie rule and n_valid mask.
+// The int dot is exact and the scale one rounding, so K5 equals its plain
+// version bit for bit. At small batch (32 queries x 1M rows x 1024) it is
+// bound by the 1 GB of codes it reads; at 512 queries by the int8 rate.
+// WMMA wants 32-byte aligned fragment pointers, so int8 slices are staged
+// k-major: each 16-column slab of a tile is its own (rows x 16 B) block.
 //
 // What bounds it on this card: at the main-path shape (B = 1024 queries,
 // N = 100k rows, D = 1024, bf16) the product is 0.2 TFLOP and the corpus
@@ -58,6 +69,10 @@ template <>
 struct Stage<float> {
   static constexpr int LD = TD + 4;
 };
+template <>
+struct Stage<int8_t> {
+  static constexpr int LD = TD;  // k-major slabs, see stage_slice_i8
+};
 
 template <typename T>
 constexpr size_t tile_bytes() {
@@ -103,10 +118,41 @@ __device__ void stage_slice(T* dst, const T* src, int rows, int row0,
   }
 }
 
+// Stage int8 rows [row0, row0 + rows) x columns [d0, d0 + TD) k-major:
+// column c of row r lands at (c / 16) * rows * 16 + r * 16 + c % 16, so
+// every 16 x 16 fragment is one 32-byte aligned block with ldm 16.
+__device__ void stage_slice_i8(int8_t* dst, const int8_t* src, int rows,
+                               int row0, int n_rows, int d0, int D,
+                               bool vec) {
+  if (vec) {  // D is a multiple of 16 and src is 16-byte aligned
+    for (int e = threadIdx.x; e < rows * (TD / 16); e += THREADS) {
+      const int r = e / (TD / 16);  // neighbouring threads read one row
+      const int slab = e % (TD / 16);
+      const int gr = row0 + r;
+      const int gc = d0 + slab * 16;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < n_rows && gc < D)
+        val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + gc);
+      *reinterpret_cast<uint4*>(dst + (slab * rows + r) * 16) = val;
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * TD; e += THREADS) {
+      const int r = e / TD;
+      const int c = e % TD;
+      const int gr = row0 + r;
+      const int gc = d0 + c;
+      dst[((c / 16) * rows + r) * 16 + c % 16] =
+          (gr < n_rows && gc < D) ? src[(size_t)gr * D + gc] : (int8_t)0;
+    }
+  }
+}
+
 // Score tile sc[TQ][LDS] = q[q0 : q0+TQ] . emb[n0 : n0+TN]^T in fp32.
+// (e_scale is the int8 form's; the float forms ignore it.)
 __device__ void score_tile(const __nv_bfloat16* q, const __nv_bfloat16* emb,
-                           int B, int N, int D, int q0, int n0, bool vec,
-                           __nv_bfloat16* qs, __nv_bfloat16* es, float* sc) {
+                           const float*, int B, int N, int D, int q0, int n0,
+                           bool vec, __nv_bfloat16* qs, __nv_bfloat16* es,
+                           float* sc) {
   using namespace nvcuda;
   constexpr int LD = Stage<__nv_bfloat16>::LD;
   const int warp = threadIdx.x >> 5;
@@ -141,9 +187,9 @@ __device__ void score_tile(const __nv_bfloat16* q, const __nv_bfloat16* emb,
   __syncthreads();
 }
 
-__device__ void score_tile(const float* q, const float* emb, int B, int N,
-                           int D, int q0, int n0, bool vec, float* qs,
-                           float* es, float* sc) {
+__device__ void score_tile(const float* q, const float* emb, const float*,
+                           int B, int N, int D, int q0, int n0, bool vec,
+                           float* qs, float* es, float* sc) {
   constexpr int LD = Stage<float>::LD;
   const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
   const int tx = threadIdx.x % 16;  // cols tx + 16*j, j < 8
@@ -169,13 +215,65 @@ __device__ void score_tile(const float* q, const float* emb, int B, int N,
   __syncthreads();
 }
 
+// int8: exact int32 dots on the tensor cores, then sc = float(dot) *
+// e_scale[row] (rows past N get scale 0; the n_valid mask drops them).
+__device__ void score_tile(const int8_t* q, const int8_t* emb,
+                           const float* e_scale, int B, int N, int D, int q0,
+                           int n0, bool vec, int8_t* qs, int8_t* es,
+                           float* sc) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x >> 5;
+  const int wr = (warp / 4) * 32;
+  const int wc = (warp % 4) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
+  for (int d0 = 0; d0 < D; d0 += TD) {
+    __syncthreads();
+    stage_slice_i8(qs, q, TQ, q0, B, d0, D, vec);
+    stage_slice_i8(es, emb, TN, n0, N, d0, D, vec);
+    __syncthreads();
+    for (int kk = 0; kk < TD; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                     wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                     wmma::col_major> b[2];
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(
+            a[i], reinterpret_cast<const signed char*>(qs) +
+                      ((kk / 16) * TQ + wr + i * 16) * 16, 16);
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(
+            b[j], reinterpret_cast<const signed char*>(es) +
+                      ((kk / 16) * TN + wc + j * 16) * 16, 16);
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+  }
+  int* sci = reinterpret_cast<int*>(sc);
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(sci + (wr + i * 16) * LDS + wc + j * 16,
+                              acc[i][j], LDS, wmma::mem_row_major);
+  __syncthreads();
+  for (int e = threadIdx.x; e < TQ * TN; e += THREADS) {
+    const int r = e / TN;
+    const int c = e % TN;
+    const float s = n0 + c < N ? e_scale[n0 + c] : 0.f;
+    sc[r * LDS + c] = __int2float_rn(sci[r * LDS + c]) * s;
+  }
+  __syncthreads();
+}
+
 // grid (cdiv(B, TQ), S). Block (x, s) scans corpus tiles of split s for
 // queries [x*TQ, x*TQ + TQ) and leaves each query's top-k of that split
 // in part[(query * S + s) * k : ... + k].
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     dense_scan_kernel(const T* __restrict__ q, const T* __restrict__ emb,
-                      int B, int N, int D, int n_valid, int k, int S,
+                      const float* __restrict__ e_scale, int B, int N,
+                      int D, int n_valid, int k, int S,
                       bool vec, bool lists_in_smem, float* part_v,
                       int* part_i) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -209,7 +307,7 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * TN;
-    score_tile(q, emb, B, N, D, q0, n0, vec, qs, es, sc);
+    score_tile(q, emb, e_scale, B, N, D, q0, n0, vec, qs, es, sc);
     for (int r = warp; r < TQ && q0 + r < B; r += WARPS) {
       float* lv = list_v(r);
       int* li = list_i(r);
@@ -281,32 +379,14 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     ci[e] = part_i[row * m + e];
   }
   __syncthreads();
-  for (int p = 0; p < k; ++p) {
-    float bv = -INFINITY;
-    int bi = tr::kIntMax;
-    int bp = tr::kIntMax;
-    for (int e = threadIdx.x; e < m; e += blockDim.x)
-      if (tr::lex_gt3(cv[e], ci[e], e, bv, bi, bp)) {
-        bv = cv[e];
-        bi = ci[e];
-        bp = e;
-      }
-    tr::block_lex_max3(bv, bi, bp, red_v, red_i, red_p);
-    if (threadIdx.x == 0) {
-      const bool empty = bi >= BIG_ID || bv <= tr::kNegInf / 2;
-      out_v[row * k + p] = bv;
-      out_i[row * k + p] = empty ? -1 : bi;
-      cv[bp] = -INFINITY;  // taken: sorts after everything
-      ci[bp] = tr::kIntMax;
-    }
-    __syncthreads();
-  }
+  tr::block_topk(cv, ci, m, k, BIG_ID, -1, out_v + row * k, out_i + row * k,
+                 red_v, red_i, red_p);
 }
 
 template <typename T>
-cudaError_t launch_dense(const void* q, const void* emb, int B, int N, int D,
-                         int n_valid, int k, int S, float* part_v,
-                         int* part_i, cudaStream_t stream) {
+cudaError_t launch_dense(const void* q, const void* emb, const float* e_scale,
+                         int B, int N, int D, int n_valid, int k, int S,
+                         float* part_v, int* part_i, cudaStream_t stream) {
   const size_t lists = (size_t)TQ * k * (sizeof(float) + sizeof(int));
   const bool lists_in_smem = tile_bytes<T>() + lists <= (size_t)MAX_SMEM;
   const size_t smem = tile_bytes<T>() + (lists_in_smem ? lists : 0);
@@ -319,8 +399,20 @@ cudaError_t launch_dense(const void* q, const void* emb, int B, int N, int D,
   if (err != cudaSuccess) return err;
   const dim3 grid((B + TQ - 1) / TQ, S);
   dense_scan_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(emb), B, N, D, n_valid,
-      k, S, vec, lists_in_smem, part_v, part_i);
+      static_cast<const T*>(q), static_cast<const T*>(emb), e_scale, B, N, D,
+      n_valid, k, S, vec, lists_in_smem, part_v, part_i);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_merge(const float* part_v, const int* part_i, int B, int S,
+                         int k, float* out_v, int* out_i, cudaStream_t st) {
+  const size_t merge_smem = (size_t)S * k * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)merge_smem);
+  if (err != cudaSuccess) return err;
+  dense_merge_kernel<<<B, MERGE_THREADS, merge_smem, st>>>(part_v, part_i, S,
+                                                           k, out_v, out_i);
   return cudaGetLastError();
 }
 
@@ -333,19 +425,27 @@ extern "C" int tr_dense_topk(const void* q, const void* emb, int dtype, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      dtype == 1 ? launch_dense<__nv_bfloat16>(q, emb, B, N, D, n_valid, k, S,
-                                               part_v, part_i, st)
-                 : launch_dense<float>(q, emb, B, N, D, n_valid, k, S, part_v,
-                                       part_i, st);
+      dtype == 1
+          ? launch_dense<__nv_bfloat16>(q, emb, nullptr, B, N, D, n_valid, k,
+                                        S, part_v, part_i, st)
+          : launch_dense<float>(q, emb, nullptr, B, N, D, n_valid, k, S,
+                                part_v, part_i, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t merge_smem = (size_t)S * k * (sizeof(float) + sizeof(int));
-  err = cudaFuncSetAttribute(dense_merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)merge_smem);
+  return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
+}
+
+// K5: int8 codes q (B, D) and emb (N, D), fp32 row scales e_scale (N,).
+// The query scales are applied by the caller.
+extern "C" int tr_dense_topk_q8(const void* q, const void* emb,
+                                const float* e_scale, int B, int N, int D,
+                                int n_valid, int k, int S, float* part_v,
+                                int* part_i, float* out_v, int* out_i,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_dense<int8_t>(q, emb, e_scale, B, N, D, n_valid,
+                                         k, S, part_v, part_i, st);
   if (err != cudaSuccess) return (int)err;
-  dense_merge_kernel<<<B, MERGE_THREADS, merge_smem, st>>>(part_v, part_i, S,
-                                                           k, out_v, out_i);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
 }
 
 extern "C" const char* tr_error_string(int err) {

@@ -122,4 +122,35 @@ __device__ __forceinline__ void warp_list_insert(float* lv, int* li, int k,
   }
 }
 
+// The top-k of m (value, id) candidates in shared memory, by k block-wide
+// argmax passes (ties to the smaller id, then the lower position); taken
+// entries are consumed. A pick with an id >= big_id or a NEG_INF value is
+// empty and comes out as (kNegInf, empty_id). Every thread of the block
+// calls it; red_*: block_lex_max3's scratch.
+__device__ inline void block_topk(float* cv, int* ci, int m, int k,
+                                  int big_id, int empty_id, float* out_v,
+                                  int* out_i, float* red_v, int* red_i,
+                                  int* red_p) {
+  for (int j = 0; j < k; ++j) {
+    float bv = -INFINITY;
+    int bi = kIntMax;
+    int bp = kIntMax;
+    for (int e = threadIdx.x; e < m; e += blockDim.x)
+      if (lex_gt3(cv[e], ci[e], e, bv, bi, bp)) {
+        bv = cv[e];
+        bi = ci[e];
+        bp = e;
+      }
+    block_lex_max3(bv, bi, bp, red_v, red_i, red_p);
+    if (threadIdx.x == 0) {
+      const bool empty = bi >= big_id || bv <= kNegInf / 2;
+      out_v[j] = empty ? kNegInf : bv;
+      out_i[j] = empty ? empty_id : bi;
+      cv[bp] = -INFINITY;  // taken: sorts after everything
+      ci[bp] = kIntMax;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace tr

@@ -39,13 +39,19 @@ def hybrid_search(
     query_vecs,
     query_texts: list[str],
     preset: HybridPreset,
+    dense_search=None,
 ):
     """Batch hybrid search.
+
+    dense_search: optional (query_vecs, k) -> (scores, ids) dense-leg
+    override, e.g. the KB's IVF + tail leg (mode='hybrid_ivf'), whose
+    probe-scan cost scales with the probed clusters instead of the corpus.
 
     Returns (scores, ids, src_bits), (B, final_top_k) tensors on the
     indexes' device, queued but not waited for; empty slots are
     (NEG_INF, -1, 0)."""
-    v_scores, v_ids = dense.search(query_vecs, preset.vector_top_k)
+    v_scores, v_ids = (dense_search or dense.search)(query_vecs,
+                                                     preset.vector_top_k)
     v_scores, v_ids = apply_min_score(v_scores, v_ids, preset.min_vector_score)
 
     if inverted is not None and len(inverted) > 0:

@@ -1,4 +1,4 @@
-# Ported from tpurag/index/dense.py (device store, single device, no quant).
+# Ported from tpurag/index/dense.py (device store, single device).
 """Device-resident dense vector index.
 
 A growable, padded (capacity, D) matrix on an explicit device:
@@ -7,6 +7,10 @@ A growable, padded (capacity, D) matrix on an explicit device:
 - capacity grows by doubling;
 - deletes tombstone the row (zeroed in place + filtered after the
   search with an overfetch of one slot per tombstone);
+- quant=True keeps an int8 max-abs sidecar of the rows (codes + one scale
+  per row, derived data, never saved) and searches it with K5, then
+  rescores 2k candidates against the storage rows with K8
+  (kernels/quant.py), so final scores stay exact cosines;
 - save/load use the JAX package's on-disk format (``<path>.meta.json`` +
   ``<path>.emb.npy`` in the storage dtype; bf16 rows as a uint16 view),
   so an index saved by either package loads in the other.
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from tpurag_torch.kernels.dense import dense_topk
+from tpurag_torch.kernels.quant import dense_topk_q8, quantize_rows
 from tpurag_torch.kernels.runtime import NEG_INF, round_up
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -41,8 +46,13 @@ def as_dtype(dtype) -> torch.dtype:
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Rows over their fp32 norms. The square root is taken in float64
+    and rounded once to fp32, which is correctly rounded, as the JAX
+    package's is (torch's vectorized fp32 sqrt on the CPU can be one ulp
+    off)."""
     x = x.float()
-    norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    ss = torch.sum(x * x, dim=-1, keepdim=True)
+    norm = torch.sqrt(ss.double()).float()
     return x / torch.clamp_min(norm, eps)
 
 
@@ -67,8 +77,6 @@ class DenseIndex:
                  store: str = "device", backing=None):
         if mesh is not None:
             raise not_ported("DenseIndex(mesh=...) (Queue 1, 'Sharding')")
-        if quant:
-            raise not_ported("DenseIndex(quant=True) (Queue 1, 'int8 slice')")
         if store != "device" or backing is not None:
             raise not_ported("DenseIndex(store='host') (Queue 1, "
                              "'host store')")
@@ -78,6 +86,13 @@ class DenseIndex:
         self.capacity = round_up(max(capacity, 128), 128)
         self._emb = torch.zeros((self.capacity, dim), dtype=self.dtype,
                                 device=self.device)
+        self.quant = bool(quant)
+        self._q8 = self._qscale = None
+        if self.quant:
+            self._q8 = torch.zeros((self.capacity, dim), dtype=torch.int8,
+                                   device=self.device)
+            self._qscale = torch.zeros((self.capacity,), dtype=torch.float32,
+                                       device=self.device)
         self.n_active = 0
         self._deleted: set[int] = set()
 
@@ -92,6 +107,14 @@ class DenseIndex:
                                 device=self.device)
             grown[: self.capacity] = self._emb
             self._emb = grown
+            if self.quant:
+                q8 = torch.zeros((new_cap, self.dim), dtype=torch.int8,
+                                 device=self.device)
+                q8[: self.capacity] = self._q8
+                qs = torch.zeros((new_cap,), dtype=torch.float32,
+                                 device=self.device)
+                qs[: self.capacity] = self._qscale
+                self._q8, self._qscale = q8, qs
             self.capacity = new_cap
 
     def add(self, vectors) -> np.ndarray:
@@ -103,7 +126,16 @@ class DenseIndex:
         if vecs.shape[1] != self.dim:
             raise ValueError(f"dim mismatch: {vecs.shape[1]} != {self.dim}")
         self._grow_to(self.n_active + m)
-        self._emb[self.n_active:self.n_active + m] = vecs.to(self.dtype)
+        rows = vecs.to(self.dtype)
+        self._emb[self.n_active:self.n_active + m] = rows
+        if self.quant:
+            # Quantize the STORAGE-dtype rows (not the fp32 input): load()
+            # rebuilds the sidecar from them, so the int8 codes, and with
+            # them the candidate set near the recall boundary, survive a
+            # save/load round-trip bit for bit.
+            r8, rs = quantize_rows(rows)
+            self._q8[self.n_active:self.n_active + m] = r8
+            self._qscale[self.n_active:self.n_active + m] = rs
         ids = np.arange(self.n_active, self.n_active + m, dtype=np.int32)
         self.n_active += m
         return ids
@@ -118,6 +150,9 @@ class DenseIndex:
         rows = torch.as_tensor(sorted(live), dtype=torch.long,
                                device=self.device)
         self._emb[rows] = 0
+        if self.quant:
+            self._q8[rows] = 0
+            self._qscale[rows] = 0.0
 
     # -- query -------------------------------------------------------------
 
@@ -138,7 +173,12 @@ class DenseIndex:
         # Overfetch to absorb tombstones, then filter.
         extra = min(len(self._deleted), max(self.n_active - k, 0))
         kk = min(k + extra, self.n_active)
-        scores, ids = dense_topk(q, self._emb, self.n_active, kk)
+        if self.quant:
+            scores, ids = dense_topk_q8(q, self._q8, self._qscale,
+                                        self.n_active, kk,
+                                        rescore_emb=self._emb)
+        else:
+            scores, ids = dense_topk(q, self._emb, self.n_active, kk)
         if self._deleted:
             dead = torch.isin(ids, torch.as_tensor(
                 sorted(self._deleted), dtype=torch.int32, device=self.device))
@@ -148,6 +188,15 @@ class DenseIndex:
             i = torch.where(s <= NEG_INF / 2, -1, torch.gather(ids, 1, order))
             scores, ids = s, i
         return scores[:, :k], ids[:, :k]
+
+    def get_rows(self, lo: int, hi: int) -> torch.Tensor:
+        """Rows [lo, hi) in the storage dtype, on the index's device (a
+        view): the bounded block accessor streaming IVF builds read from."""
+        return self._emb[lo:hi]
+
+    def get_vectors(self, ids) -> np.ndarray:
+        rows = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        return self._emb[rows].float().cpu().numpy()
 
     @property
     def embeddings(self) -> torch.Tensor:
@@ -180,9 +229,15 @@ class DenseIndex:
         (path.parent / (path.name + ".meta.json")).write_text(json.dumps(meta))
         np.save(path.parent / (path.name + ".emb.npy"), self.storage_array())
 
+    def _rebuild_quant(self) -> None:
+        """(Re)quantize the whole matrix into the int8 sidecar: one pass
+        at load time; zero rows (padding, tombstones) get scale 0, so they
+        can never outrank a live row."""
+        self._q8, self._qscale = quantize_rows(self._emb)
+
     @classmethod
     def from_numpy(cls, emb: np.ndarray, dtype="bfloat16", deleted=(),
-                   device="cuda") -> "DenseIndex":
+                   device="cuda", quant: bool = False) -> "DenseIndex":
         """An index over rows already normalized and in storage form
         (uint16 bf16 payloads or float32), as save() writes them."""
         n, dim = emb.shape
@@ -192,10 +247,15 @@ class DenseIndex:
             idx._emb[:n] = to_storage(emb, idx.dtype).to(idx.device)
         idx.n_active = n
         idx._deleted = {int(i) for i in deleted}
+        if quant:
+            idx.quant = True
+            idx._rebuild_quant()
         return idx
 
     @classmethod
-    def load(cls, path, device="cuda") -> "DenseIndex":
+    def load(cls, path, device="cuda", quant: bool = False) -> "DenseIndex":
+        """quant: rebuild the int8 sidecar after the rows load (it is
+        derived data, never saved)."""
         path = pathlib.Path(path)
         meta = json.loads((path.parent / (path.name + ".meta.json")).read_text())
         if meta["n_shards"] != 1:
@@ -203,4 +263,5 @@ class DenseIndex:
                              "'Sharding')")
         emb = np.load(path.parent / (path.name + ".emb.npy"), mmap_mode="r")
         return cls.from_numpy(emb, dtype=meta["dtype"],
-                              deleted=meta["deleted"], device=device)
+                              deleted=meta["deleted"], device=device,
+                              quant=quant)

@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
-                                          load_kernels)
+                                          launch_counts, load_kernels)
 
 _BIG = 2**30
 # Warps per K4 block (csrc/bm25_combine.cu: THREADS / 32), one running
@@ -240,8 +240,5 @@ def combine_topk(n_val, n_doc, w_seg, w_doc, k: int, window: int = 12):
              w_doc.data_ptr(), ww, k, list_v.data_ptr(), list_i.data_ptr(),
              out_v.data_ptr(), out_i.data_ptr(), cuda_stream(dev))
     check_launch(err, "combine_topk")
-    combine_topk.launches += 1
+    launch_counts["combine_topk"] += 1
     return out_v, out_i
-
-
-combine_topk.launches = 0

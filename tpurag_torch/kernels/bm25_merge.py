@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
-                                          load_kernels)
+                                          launch_counts, load_kernels)
 from tpurag_torch.kernels.topk import select_topk
 
 _BIG = 2**30
@@ -187,11 +187,8 @@ def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
     err = fn(doc.data_ptr(), con.data_ptr(), b, w, p, t, cbits, k,
              out_v.data_ptr(), out_i.data_ptr(), cuda_stream(doc.device))
     check_launch(err, "merge_segsum_topk")
-    merge_segsum_topk.launches += 1
+    launch_counts["merge_segsum_topk"] += 1
     return out_v, out_i
-
-
-merge_segsum_topk.launches = 0
 
 
 def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
@@ -246,8 +243,5 @@ def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
                for x in (key_rows, con_rows, rowmax)),
              cuda_stream(dev))
     check_launch(err, "merge_segsum_full")
-    merge_segsum_full.launches += 1
+    launch_counts["merge_segsum_full"] += 1
     return seg, doc_s
-
-
-merge_segsum_full.launches = 0

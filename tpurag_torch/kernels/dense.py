@@ -22,7 +22,8 @@ import ctypes
 import torch
 
 from tpurag_torch.kernels.runtime import (NEG_INF, cdiv, check_launch,
-                                          cuda_stream, load_kernels)
+                                          cuda_stream, launch_counts,
+                                          load_kernels)
 
 # Kernel tile sizes (csrc/dense_topk.cu: TQ queries x TN corpus rows).
 TILE_Q = 64
@@ -32,7 +33,8 @@ TARGET_BLOCKS = 264
 # Candidates per query the merge pass holds in shared memory.
 MAX_MERGE_CANDIDATES = 8192
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Storage-dtype codes of the kernels' C entry points.
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dense_topk_ref(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
@@ -71,7 +73,7 @@ def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
         return dense_topk_ref(queries, emb, n_valid, k)
     if emb.device.type != "cuda":
         raise ValueError(f"dense_topk: unsupported device {emb.device}")
-    if emb.dtype not in _DTYPE_CODE:
+    if emb.dtype not in DTYPE_CODE:
         raise TypeError(f"dense_topk: corpus dtype {emb.dtype} not supported "
                         "by the kernel (bfloat16 or float32)")
     if emb.dim() != 2 or queries.dim() != 2:
@@ -104,12 +106,9 @@ def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p]
-    err = fn(q.data_ptr(), emb.data_ptr(), _DTYPE_CODE[emb.dtype], b, n, d,
+    err = fn(q.data_ptr(), emb.data_ptr(), DTYPE_CODE[emb.dtype], b, n, d,
              n_valid, k, splits, part_v.data_ptr(), part_i.data_ptr(),
              out_v.data_ptr(), out_i.data_ptr(), cuda_stream(emb.device))
     check_launch(err, "dense_topk")
-    dense_topk.launches += 1
+    launch_counts["dense_topk"] += 1
     return out_v, out_i
-
-
-dense_topk.launches = 0

@@ -3,7 +3,8 @@
 
 The hand-written kernels live in ``tpurag_torch/csrc`` as CUDA C++ with a
 plain C interface. ``load_kernels()`` compiles them with ``nvcc`` for
-Hopper (``sm_90a``) into one shared library at first use and loads it
+Hopper (``sm_90a``), one process per source file, all started together,
+links the objects into one shared library at first use and loads it
 with ctypes. The library lands in ``tpurag_torch/_build`` under a name
 keyed on a hash of the sources and flags, so a source edit rebuilds and
 an unchanged tree reuses the build. Nothing here runs at import time:
@@ -12,6 +13,7 @@ the CPU-only test box imports every module without nvcc.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -27,11 +29,15 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lib = None
 _lib_lock = threading.Lock()
 build_info: dict = {}  # path, seconds (0.0 when reused), ptxas log
+# Launches by wrapper name: each wrapper adds one where it launches its
+# kernel, and nowhere else. Keyed by name, so a stand-in swapped over a
+# wrapper (a call recorder) leaves the count where it is.
+launch_counts: collections.Counter = collections.Counter()
 
 
 def cdiv(a: int, b: int) -> int:
@@ -71,18 +77,9 @@ def load_kernels() -> ctypes.CDLL:
         log = so.with_suffix(".log")
         seconds = 0.0
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".tmp{os.getpid()}")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _build(so, log)
             seconds = time.perf_counter() - t0
-            log.write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr[-4000:]}")
-            os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         lib.tr_error_string.restype = ctypes.c_char_p
         lib.tr_error_string.argtypes = [ctypes.c_int]
@@ -90,6 +87,45 @@ def load_kernels() -> ctypes.CDLL:
                           log=log.read_text() if log.exists() else "")
         _lib = lib
         return lib
+
+
+def _build(so: pathlib.Path, log: pathlib.Path) -> None:
+    """Compile every csrc/*.cu in parallel, then link the shared library
+    (written under a temporary name, renamed when complete)."""
+    nvcc = find_nvcc()
+    work = so.with_suffix(f".objs{os.getpid()}")
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        procs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        outs = []
+        for obj, p in procs:  # waits for every process, failed or not
+            out, err = p.communicate()
+            outs.append((obj, p.returncode, out, err))
+        failed = [(obj, rc, err) for obj, rc, _, err in outs if rc != 0]
+        text = "".join(out + err for _, _, out, err in outs)
+        if not failed:
+            tmp = so.with_suffix(f".tmp{os.getpid()}")
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *[str(obj) for obj, *_ in outs]],
+                capture_output=True, text=True)
+            text += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = [(so, link.returncode, link.stderr)]
+        log.write_text(text)
+        if failed:
+            obj, rc, err = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}) for {obj.stem}:\n"
+                               f"{err[-4000:]}")
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def check_launch(err: int, name: str) -> None:
