@@ -47,13 +47,28 @@ non-zero before the result line):
      probe; the same partition on the CPU giving the same ids; 1000
      chunks after the build scanned by K1 in the tail; one profiled
      hybrid_ivf request.
+  9. the eval-suite slice (tpurag_torch/eval/bench.py, the JAX package's
+     tpurag/eval/bench.py): K2' bm25_topk_fused against its plain
+     version bit for bit at t in {1, 2, 4, 8} x p_max in {16, 64, 256,
+     2048}, packed and not (clamped starts, empty windows, docs >=
+     n_valid, k past the row), and K7 dense_topk_co against dense_topk_ref
+     within TOL (tests/test_dense.py's shapes, k=200, fp32, b=4160); the
+     five runnable configs (exact_dense, hybrid, memory_fusion, graph,
+     ivf_latency) at full size through run_all(device="cuda"), every
+     launch count reset just before each and read just after, with
+     exact_dense recall 1.0 and ivf_latency recall@10 >= 0.95; one hybrid
+     step's K2' call replayed bit for bit; hybrid_step at the driver's
+     example shapes on the card against the CPU; K7 timed beside K1 and
+     torch.topk on the dense inputs of hybrid (512 x 100k), graph (256 x
+     1M) and phase 7's 1M request (512 x 1M).
 
 The second-to-last stdout line is the kernel table as JSON, one row per
 kernel: launches over the 1M phases' requests (K1-K4 phase 7, K5, K6, K8
-phase 8), and times, plain times, bounds and library times summed over one
-1M request's launches; the last is {"ok": true, "device": {...}}. Without a
-CUDA device, or run outside the repository, it exits non-zero and prints no
-result.
+phase 8) and over phase 9's eval configs (K2'; K7 is on no path, 0), and
+times, plain times, bounds and library times summed over one 1M request's
+launches (K7: phase 7's request; K2': one hybrid step's call); the last is
+{"ok": true, "device": {...}}. Without a CUDA device, or run outside the
+repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -231,6 +246,80 @@ def check_full(b: int, t: int, p: int, cbits: int, n_docs: int = N_DOCS,
         return 0.0, None, None
     return (0.0, cuda_ms(lambda: merge_segsum_full(doc, con, p, t, cbits)),
             cuda_ms(lambda: merge_segsum_full_ref(doc, con, p, t, cbits)))
+
+
+def csr_windows(rng, b: int, t: int, p_max: int, n_docs: int):
+    """Host arrays in bm25_topk_fused's input contract: CSR postings of
+    max(4t, 8) terms (each doc-ascending, unique docs, df 1..p_max, no
+    tail padding) and (b, t) query windows into them, with the edge cases
+    in: row 0's first window is the last term's, whose start lies past
+    nnz - p_max and is clamped; ~15% of the windows (and the last row's
+    last) have length 0; docs >= n_valid = 7/8 n_docs are masked. Returns
+    (starts, lens, idf, post_doc, post_impact, n_valid)."""
+    n_terms = max(4 * t, 8)
+    df = rng.integers(1, p_max + 1, n_terms)
+    df[-1] = max(1, p_max // 2)
+    bounds = np.concatenate([[0], np.cumsum(df)])
+    post_doc = np.concatenate([np.sort(rng.choice(n_docs, m, replace=False))
+                               for m in df]).astype(np.int32)
+    post_impact = rng.uniform(0.2, 2.0, len(post_doc)).astype(np.float32)
+    if len(post_doc) < p_max:  # an index holds at least p_max postings
+        pad = p_max - len(post_doc)
+        post_doc = np.concatenate([post_doc, np.full(pad, 2**30, np.int32)])
+        post_impact = np.concatenate([post_impact, np.zeros(pad, np.float32)])
+    tid = rng.integers(0, n_terms, (b, t))
+    tid[0, 0] = n_terms - 1
+    starts = bounds[tid].astype(np.int32)
+    lens = df[tid].astype(np.int32)
+    lens[rng.random((b, t)) < 0.15] = 0
+    lens[-1, -1] = 0
+    idf = rng.uniform(0.5, 3.0, (b, t)).astype(np.float32)
+    return starts, lens, idf, post_doc, post_impact, n_docs - n_docs // 8
+
+
+def check_fused(b: int, t: int, p_max: int, cbits: int, k: int = 8,
+                n_docs: int = N_DOCS, seed: int = 0):
+    """K2' against its plain version on the card: the same gather, network
+    and sums, so ids and scores must be bit-identical (else it raises)."""
+    from tpurag_torch.kernels.bm25_merge import (bm25_topk_fused,
+                                                 bm25_topk_fused_ref)
+
+    *arrays, n_valid = csr_windows(np.random.default_rng(seed), b, t, p_max,
+                                   n_docs)
+    args = [torch.from_numpy(x).cuda() for x in arrays] + [n_valid]
+    kw = {"k": k, "p_max": p_max, "cbits": cbits}
+    v_k, i_k = bm25_topk_fused(*args, **kw)
+    v_r, i_r = bm25_topk_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+    where = f"t={t} p_max={p_max} cbits={cbits} k={k}"
+    assert torch.equal(i_k, i_r), f"K2' ids differ at {where}"
+    assert torch.equal(v_k, v_r), f"K2' scores differ at {where}"
+    assert (i_k[:, 0] >= 0).any(), "no hits at all: the case is vacuous"
+
+
+def check_dense_co(b: int, n_rows: int, n_valid: int, d: int, k: int,
+                   dtype=torch.bfloat16, seed: int = 0):
+    """K7 against dense_topk_ref on the card (within TOL, ids equal but at
+    near ties) and against K1 (the same scores, so ids equal but at near
+    ties). Returns max_abs_err against the plain version."""
+    from tpurag_torch.kernels.dense import (dense_topk, dense_topk_co,
+                                            dense_topk_ref)
+
+    rng = np.random.default_rng(seed)
+    emb = torch.zeros((n_rows, d), dtype=dtype, device="cuda")
+    emb[:n_valid] = torch.from_numpy(unit_rows(rng, n_valid, d)).cuda().to(dtype)
+    q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
+    v_c, i_c = dense_topk_co(q, emb, n_valid, k)
+    v_1, i_1 = dense_topk(q, emb, n_valid, k)
+    v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
+    torch.cuda.synchronize()
+    assert v_c.shape == (b, k) and i_c.dtype == torch.int32
+    assert torch.isfinite(v_c).all()
+    err = topk_agree(v_c, i_c, v_r, i_r)
+    topk_agree(v_c, i_c, torch.cat([v_1, v_r[:, k:]], 1),
+               torch.cat([i_1, i_r[:, k:]], 1))
+    return err
 
 
 def combine_rows(g: int, wn: int, ww: int, n_docs: int = N_DOCS,
@@ -547,21 +636,26 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 def replay_dense(calls) -> dict:
-    """K1 on the main path's own inputs (one request's launching calls):
-    held to dense_topk_ref by topk_agree, with the summed times of the
-    kernel, its plain version and torch.topk(q @ emb.T) in bf16."""
-    from tpurag_torch.kernels.dense import dense_topk, dense_topk_ref
+    """K1 and K7 on the main path's own inputs (one request's K1 calls):
+    each held to dense_topk_ref by topk_agree, with the summed times of
+    K1, K7, the plain version and torch.topk(q @ emb.T) in bf16 (one
+    function, so one bound)."""
+    from tpurag_torch.kernels.dense import (dense_topk, dense_topk_co,
+                                            dense_topk_ref)
 
-    err = ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    err = co_err = ms = co_ms = plain_ms = lib_ms = nbytes = ops = 0.0
     shapes = []
     for (q, emb, n_valid, k), _ in calls:
         v_k, i_k = dense_topk(q, emb, n_valid, k)
+        v_c, i_c = dense_topk_co(q, emb, n_valid, k)
         v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
         torch.cuda.synchronize()
-        assert torch.isfinite(v_k).all()
+        assert torch.isfinite(v_k).all() and torch.isfinite(v_c).all()
         err = max(err, topk_agree(v_k, i_k, v_r, i_r))
+        co_err = max(co_err, topk_agree(v_c, i_c, v_r, i_r))
         del v_r, i_r
         ms += cuda_ms(lambda: dense_topk(q, emb, n_valid, k))
+        co_ms += cuda_ms(lambda: dense_topk_co(q, emb, n_valid, k))
         plain_ms += cuda_ms(lambda: dense_topk_ref(q, emb, n_valid, k))
         live = emb[:n_valid]
         qb = q.to(emb.dtype)
@@ -572,8 +666,45 @@ def replay_dense(calls) -> dict:
                    + b * k * 8)
         ops += 2 * b * n_valid * d
         shapes.append(f"{b}x{n_valid}x{d} k={k}")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms,
-            "shapes": shapes, "bound": bound_ms(nbytes, ops, BF16_FLOPS_S)}
+    return {"err": err, "co_err": co_err, "ms": ms, "co_ms": co_ms,
+            "plain_ms": plain_ms, "lib_ms": lib_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, ops, BF16_FLOPS_S)}
+
+
+def replay_fused(calls) -> dict:
+    """K2' on the main path's own inputs: bit-identical to its plain
+    version (err is the measured largest score difference), and the
+    summed times. The bound is by bytes: the postings this run's windows
+    hold (live lanes, 8 bytes each), the (B, T) tables and the (B, k)
+    result. Its integer compares have no rate in the data sheet's table,
+    and the fewest a T-way merge needs (live * log2 T) would take under a
+    tenth of the byte time even at the fp32 rate."""
+    from tpurag_torch.kernels.bm25_merge import (bm25_topk_fused,
+                                                 bm25_topk_fused_ref)
+
+    err = ms = plain_ms = nbytes = all_lanes = 0.0
+    shapes = []
+    for args, kw in calls:
+        v_k, i_k = bm25_topk_fused(*args, **kw)
+        v_r, i_r = bm25_topk_fused_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), kw
+        assert (i_k[:, 0] >= 0).any(), "no hits at all: the replay is vacuous"
+        live_out = i_r >= 0
+        err = max(err, (v_k - v_r)[live_out].abs().max().item())
+        ms += cuda_ms(lambda: bm25_topk_fused(*args, **kw))
+        plain_ms += cuda_ms(lambda: bm25_topk_fused_ref(*args, **kw))
+        starts, lens = args[:2]
+        b, t = starts.shape
+        p_max = kw["p_max"]
+        live = int(lens.clamp(0, p_max).sum().item())
+        nbytes += live * 8 + starts.numel() * 12 + b * kw["k"] * 8
+        all_lanes += b * t * p_max * 8
+        shapes.append(f"{b}x{t}x{p_max} cbits={kw['cbits']} "
+                      f"({live} live postings)")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, 0.0, FP32_OPS_S),
+            "all_lanes_ms": all_lanes / HBM_BYTES_S * 1e3}
 
 
 def replay_merge(calls) -> dict:
@@ -970,29 +1101,40 @@ def replay_q8(calls) -> dict:
 
 def replay_ivf(calls) -> dict:
     """K6 on the main path's own inputs: int8 bit-identical to its plain
-    version (scores before the query scale, and ids), and the summed
-    times. The bound counts the rows these probes hold."""
+    version (scores before the query scale, and ids), bf16 / fp32 within
+    TOL with ids equal but at near ties; the largest score difference and
+    the summed times. The bound counts the rows these probes hold, at the
+    storage type's peak."""
     from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
                                                ivf_probe_topk_ref)
 
-    ms = plain_ms = nbytes = ops = 0.0
+    err = ms = plain_ms = nbytes = ops = 0.0
     shapes = []
     for args, kw in calls:
+        q, emb, starts, counts, k = args
         v_k, i_k = ivf_probe_topk(*args, **kw)
-        v_r, i_r = ivf_probe_topk_ref(*args, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K6 replay"
+        if emb.dtype == torch.int8:
+            v_r, i_r = ivf_probe_topk_ref(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K6 replay"
+        else:
+            v_r, i_r = ivf_probe_topk_ref(*args[:4], k + 1, **kw)
+            torch.cuda.synchronize()
+            assert (i_k[:, 0] < 2**30).any(), "K6 replay found no rows"
+            err = max(err, topk_agree(v_k, i_k, v_r, i_r))
         ms += cuda_ms(lambda: ivf_probe_topk(*args, **kw))
         plain_ms += cuda_ms(lambda: ivf_probe_topk_ref(*args, **kw))
-        q, emb, starts, counts, k = args
         b, d = q.shape
         rows = int(counts.sum().item())
         nbytes += (rows * d * emb.element_size() + b * d * q.element_size()
                    + starts.numel() * 12 + b * k * 8)
         ops += 2 * rows * d
-        shapes.append(f"b={b} nprobe={starts.shape[1]} rows={rows} k={k}")
-    return {"ms": ms, "plain_ms": plain_ms, "shapes": shapes,
-            "bound": bound_ms(nbytes, ops, INT8_OPS_S)}
+        shapes.append(f"{emb.dtype} b={b} nprobe={starts.shape[1]} "
+                      f"rows={rows} k={k}")
+    peak = {torch.int8: INT8_OPS_S, torch.bfloat16: BF16_FLOPS_S}.get(
+        emb.dtype, FP32_OPS_S)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, ops, peak)}
 
 
 def replay_gather(calls) -> dict:
@@ -1092,24 +1234,26 @@ def q8_standalone(kb, card: str) -> dict:
 
 
 # Each port kernel's device functions (K3's rows up to one block's shared
-# memory run K2's body with FULL = true: merge_segsum_kernel<PACKED, FULL>).
-# dense_merge_kernel serves K1 and K5 alike; phase 8's profiled request
-# runs only K1 of the two.
+# memory and K2' run K2's body: merge_segsum_kernel<PACKED, FULL,
+# GATHER>). dense_merge_kernel serves K1, K5 and K7 alike; the profiled
+# requests run only K1 of them.
 PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "row_max_kernel": "K3", "tile_merge_kernel": "K3",
                 "global_stage_kernel": "K3", "full_segsum_kernel": "K3",
                 "combine_topk_kernel": "K4", "ivf_scan_kernel": "K6",
-                "ivf_merge_kernel": "K6", "gather_scores_kernel": "K8"}
+                "ivf_merge_kernel": "K6", "dense_co_scan_kernel": "K7",
+                "gather_scores_kernel": "K8"}
 
 
 def port_kernel(name: str):
     """The port kernel (K1..K8) a device function belongs to, or None."""
     if re.match(r"dense_scan_kernel<\s*(signed char|char|int8_t)\s*>", name):
         return "K5"
-    m = re.match(r"merge_segsum_kernel<\s*(?:\(bool\))?\w+,\s*"
-                 r"(?:\(bool\))?(\w+)\s*>", name)
+    m = re.match(r"merge_segsum_kernel<([^<>]*)>", name)
     if m:
-        return "K3" if m.group(1) in ("true", "1") else "K2"
+        flags = [f.replace("(bool)", "").strip() in ("true", "1")
+                 for f in m.group(1).split(",")]
+        return "K3" if flags[1] else "K2'" if flags[2] else "K2"
     return PORT_KERNELS.get(name.split("<")[0])
 
 
@@ -1162,14 +1306,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    from tpurag_torch.index.inverted import packed_cbits
     from tpurag_torch.kernels import runtime
     from tpurag_torch.kernels.bm25_join import combine_topk
-    from tpurag_torch.kernels.bm25_merge import (merge_segsum_full,
+    from tpurag_torch.kernels.bm25_merge import (bm25_topk_fused,
+                                                 merge_segsum_full,
                                                  merge_segsum_topk)
-    from tpurag_torch.kernels.dense import dense_topk
+    from tpurag_torch.kernels.dense import dense_topk, dense_topk_co
     from tpurag_torch.kernels.ivf_scan import ivf_probe_topk
     from tpurag_torch.kernels.quant import dense_scan_q8, gather_scores
-    from tpurag_torch.kernels.runtime import load_kernels
+    from tpurag_torch.kernels.runtime import launch_counts, load_kernels
 
     t_start = time.perf_counter()
     # -- 1. device ----------------------------------------------------------
@@ -1376,6 +1522,131 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 9. the eval-suite slice -------------------------------------------------
+    # 9a. K2' and K7 against their plain versions.
+    n_fused = 0
+    for t in (1, 2, 4, 8):
+        for p_max in (16, 64, 256, 2048):
+            for cbits in (packed_cbits(N_DOCS), 0):
+                k = 24 if t * p_max <= 16 else 8  # k past W = 16 lanes
+                check_fused(64, t, p_max, cbits, k, seed=t * p_max + cbits)
+                n_fused += 1
+    check_fused(16, 2, 16, 0, k=40, seed=5)  # k past W = 32 lanes
+    log(f"[K2'] {n_fused + 1} shapes (t in {{1, 2, 4, 8}} x p_max in {{16, "
+        f"64, 256, 2048}}, packed cbits={packed_cbits(N_DOCS)} and unpacked; "
+        f"clamped starts, empty windows, docs >= n_valid, k > W) "
+        f"bit-identical to the plain version ({card})")
+    err7 = 0.0
+    for args in ((7, 300, 300, 64, 8), (16, 5000, 4777, 128, 8),
+                 (130, 2500, 2500, 96, 5), (3, 10, 4, 32, 8),
+                 (9, 257, 200, 130, 3), (256, 20_480, 20_000, DIM, 200),
+                 (4160, 20_480, 20_000, DIM, 8)):
+        err7 = max(err7, check_dense_co(*args, seed=args[0] + args[-1]))
+    err7 = max(err7, check_dense_co(64, 4096, 4000, 256, 40, torch.float32,
+                                    seed=2))
+    log(f"[K7] 8 shapes (tests/test_dense.py's corpus-outer shapes, k=200, "
+        f"fp32, b=4160 past the JAX wrapper's 4096 cap): max|dscore|="
+        f"{err7:.3e} against the plain version, ids equal to K1's but at "
+        f"near ties ({card})")
+
+    # 9b. The five runnable eval configs at full size, each with every
+    # launch count reset just before and read just after; the hybrid step's
+    # K2' calls, the K1 calls of hybrid, graph and ivf_latency and
+    # ivf_latency's K6 calls are recorded.
+    from tpurag_torch.eval import bench as bench_mod
+    from tpurag_torch.kernels import ivf_scan as ivf_scan_mod
+
+    eval_kernels = ivf_kernels + (bm25_topk_fused, dense_topk_co)
+    eval_calls = {"fused": [], "hybrid": [], "graph": [], "ivf_latency": [],
+                  "ivf_probe": []}
+    results, eval_launches = {}, {}
+    for name in ("exact_dense", "hybrid", "memory_fusion", "graph",
+                 "ivf_latency"):
+        for fn in eval_kernels:
+            launch_counts[fn.__name__] = 0
+        with contextlib.ExitStack() as stack:
+            if name in ("hybrid", "graph", "ivf_latency"):
+                stack.enter_context(recording(bench_mod, "dense_topk",
+                                              eval_calls[name]))
+            if name == "hybrid":
+                stack.enter_context(recording(bench_mod, "bm25_topk_fused",
+                                              eval_calls["fused"]))
+            if name == "ivf_latency":
+                stack.enter_context(recording(ivf_scan_mod, "ivf_probe_topk",
+                                              eval_calls["ivf_probe"]))
+            t0 = time.perf_counter()
+            results[name] = bench_mod.run_all([name], device="cuda")[0]
+        eval_launches[name] = {fn.__name__: launch_counts[fn.__name__]
+                               for fn in eval_kernels
+                               if launch_counts[fn.__name__]}
+        log(f"[eval] {json.dumps(results[name])} launches "
+            f"{eval_launches[name]} ({time.perf_counter() - t0:.1f}s) "
+            f"({card})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert results["exact_dense"]["value"] == 1.0, results["exact_dense"]
+    assert results["ivf_latency"]["recall_at_10"] >= 0.95, results[
+        "ivf_latency"]
+    for name, kern in (("hybrid", "bm25_topk_fused"), ("hybrid", "dense_topk"),
+                       ("graph", "dense_topk"), ("ivf_latency", "dense_topk"),
+                       ("ivf_latency", "ivf_probe_topk")):
+        assert eval_launches[name].get(kern, 0) > 0, (
+            f"{kern} was not launched in the eval config {name}")
+    co_launches = sum(n.get("dense_topk_co", 0)
+                      for n in eval_launches.values())
+
+    # 9c. One hybrid step's K2' call replayed against its plain version.
+    k2f = replay_fused(eval_calls["fused"][:1])
+    log(f"[K2'] one hybrid step's launch ({', '.join(k2f['shapes'])}) "
+        f"bit-identical to the plain version (max|dscore|={k2f['err']:.3e}): "
+        f"kernel {k2f['ms']:.3f} ms, plain {k2f['plain_ms']:.3f} ms, bound "
+        f"{k2f['bound'][0]:.4f} ms ({k2f['bound'][1]}, live postings; every "
+        f"lane's posting: {k2f['all_lanes_ms']:.4f} ms) ({card})")
+
+    # 9c'. ivf_latency's K6 scan (bf16, the tuned nprobe) replayed against
+    # its plain version; its K1 calls follow in 9e.
+    k6l = replay_ivf(eval_calls["ivf_probe"][-1:])
+    err6 = max(err6, k6l["err"])
+    log(f"[K6] ivf_latency's timed scan ({', '.join(k6l['shapes'])}) against "
+        f"the plain version: max|dscore|={k6l['err']:.3e}; kernel "
+        f"{k6l['ms']:.3f} ms, plain {k6l['plain_ms']:.3f} ms, bound "
+        f"{k6l['bound'][0]:.4f} ms ({k6l['bound'][1]}) ({card})")
+
+    # 9d. hybrid_step at the JAX package driver's example shapes, on the
+    # card and on the CPU.
+    launch_counts["bm25_topk_fused"] = launch_counts["dense_topk"] = 0
+    got = bench_mod.hybrid_step(**bench_mod.example_inputs(device="cuda"))
+    want = bench_mod.hybrid_step(**bench_mod.example_inputs(device="cpu"))
+    assert launch_counts["bm25_topk_fused"] == 1
+    assert launch_counts["dense_topk"] == 1
+    assert torch.equal(got[1].cpu(), want[1]), "hybrid_step ids differ"
+    assert torch.allclose(got[0].cpu(), want[0], rtol=1e-6, atol=0)
+    assert (want[1][:, 0] >= 0).all()
+    log(f"[eval] hybrid_step at the driver's example shapes (n 2048, d 256, "
+        f"b 8, T 4, p_max 64): fused top-8 on the card equal to the CPU's "
+        f"({card})")
+
+    # 9e. K1 and K7, held to the plain version and timed beside
+    # torch.topk, on the main paths' dense inputs: ivf_latency's first call
+    # (the oracle's 4k overfetch) and its last (a timed exact step).
+    ivf_dense = eval_calls["ivf_latency"]
+    k7 = {"512x1M (phase 7)": k1,
+          "hybrid": replay_dense(eval_calls["hybrid"][:1]),
+          "graph": replay_dense(eval_calls["graph"][:1]),
+          "ivf_latency": replay_dense([ivf_dense[0], ivf_dense[-1]])}
+    del eval_calls, ivf_dense
+    for name, r in k7.items():
+        err1 = max(err1, r["err"])
+        err7 = max(err7, r["co_err"])
+        log(f"[K7] {name} ({', '.join(r['shapes'])}): max|dscore|="
+            f"{r['co_err']:.3e} (K1 {r['err']:.3e}) against the plain "
+            f"version; K7 {r['co_ms']:.3f} ms, K1 {r['ms']:.3f} ms, "
+            f"torch.topk(q @ emb.T) {r['lib_ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     log(f"[total] {time.perf_counter() - t_start:.1f}s ({card})")
     log(json.dumps({"kernels": [
         {"name": "dense_topk", "route": "cuda",
@@ -1427,6 +1698,21 @@ def main() -> int:
          "ms": k8["ms"], "plain_ms": k8["plain_ms"],
          "bound_ms": k8["bound"][0], "bound_by": k8["bound"][1],
          "library_ms": None},
+        {"name": "bm25_topk_fused", "route": "cuda",
+         "source": "tpurag_torch/csrc/bm25_merge.cu",
+         "replaces": "tpurag/kernels/bm25_pallas.py:402",
+         "launches": eval_launches["hybrid"]["bm25_topk_fused"],
+         "max_abs_err": k2f["err"], "ms": k2f["ms"],
+         "plain_ms": k2f["plain_ms"],
+         "bound_ms": k2f["bound"][0], "bound_by": k2f["bound"][1],
+         "library_ms": None},
+        {"name": "dense_topk_co", "route": "cuda",
+         "source": "tpurag_torch/csrc/dense_topk.cu",
+         "replaces": "tpurag/kernels/dense.py:236",
+         "launches": co_launches, "max_abs_err": err7,
+         "ms": k1["co_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
+         "library_ms": k1["lib_ms"]},
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,218 @@
+"""tpurag_torch's CSR BM25 top-k against the JAX package.
+
+bm25_topk_fused (K2''s wrapper; on the CPU its plain version: the CSR
+gather, odd terms flipped, K2's plain version) is held to JAX's
+bm25_topk_fused, whose Pallas kernel runs in interpret mode here: ids
+exactly, scores within 1e-5 unpacked and 1e-6 relative packed, as in
+test_torch_bm25.py. The windows include clamped starts, zero lengths,
+docs past n_valid and k above the candidate count.
+
+bm25_topk_segsum and bm25_topk (the scatter-add cross-check) are plain
+torch in both packages' sense (XLA code in JAX): held to JAX's on the
+cases of tests/test_bm25_segsum.py. Their scores are differences of
+running prefix sums, which both packages add in their own order: within
+1e-4 (that file's tolerance between its own two paths).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from test_bm25_segsum import make_args
+from tpurag.kernels.bm25 import bm25_topk as jax_bm25_topk
+from tpurag.kernels.bm25 import bm25_topk_segsum as jax_segsum
+from tpurag.kernels.bm25_pallas import bm25_topk_fused as jax_fused
+from tpurag_torch.index.inverted import packed_cbits
+from tpurag_torch.kernels import bm25_merge
+from tpurag_torch.kernels.bm25 import bm25_topk, bm25_topk_segsum
+from tpurag_torch.kernels.bm25_merge import (bm25_topk_fused,
+                                             bm25_topk_fused_ref)
+from tpurag_torch.kernels.runtime import NEG_INF, launch_counts
+
+N_DOCS = 3000
+
+
+def _both(arrays):
+    """numpy CSR arrays -> (JAX arrays, torch tensors)."""
+    return ([jnp.asarray(x) for x in arrays],
+            [torch.from_numpy(np.ascontiguousarray(x)) for x in arrays])
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("p_max", [16, 64])
+@pytest.mark.parametrize("t", [1, 2, 4, 8])
+def test_fused_matches_jax(t, p_max, packed):
+    rng = np.random.default_rng(t * 100 + p_max + packed)
+    *arrays, n_valid = chip_smoke.csr_windows(rng, 6, t, p_max, N_DOCS)
+    cbits = packed_cbits(N_DOCS) if packed else 0
+    k = 24 if t * p_max <= 16 else 8  # t=1, p_max=16: k past the 16 lanes
+    j, tt = _both(arrays)
+    wv, wi = jax_fused(*j, jnp.int32(n_valid), k=k, p_max=p_max, cbits=cbits)
+    gv, gi = bm25_topk_fused(*tt, n_valid, k=k, p_max=p_max, cbits=cbits)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    if cbits:
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=1e-6)
+    else:
+        np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-5)
+    assert (gi.numpy()[:, 0] >= 0).any()
+    if k > t * p_max:
+        assert (gi.numpy()[:, t * p_max:] == -1).all()
+
+
+def test_fused_edge_cases_are_exercised():
+    """The fixture's windows do hit the edge cases they are meant to."""
+    starts, lens, idf, post_doc, post_impact, n_valid = chip_smoke.csr_windows(
+        np.random.default_rng(1), 6, 4, 64, N_DOCS)
+    assert starts.max() > len(post_doc) - 64        # a clamped start
+    assert (lens == 0).any() and (lens > 0).any()
+    assert (post_doc >= n_valid).any() and (post_doc < n_valid).any()
+
+
+def test_fused_wrapper_cpu_path_and_launch_count():
+    *arrays, n_valid = chip_smoke.csr_windows(np.random.default_rng(2), 4, 4,
+                                              16, 500)
+    tt = [torch.from_numpy(x) for x in arrays]
+    before = launch_counts["bm25_topk_fused"]
+    got = bm25_merge.bm25_topk_fused(*tt, n_valid, k=8, p_max=16, cbits=20)
+    want = bm25_topk_fused_ref(*tt, n_valid, k=8, p_max=16, cbits=20)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert launch_counts["bm25_topk_fused"] == before  # no kernel on CPU
+
+
+def test_fused_wrapper_rejects_unsupported_device():
+    """K2''s wrapper raises on a device it has no kernel for, rather
+    than giving way to its plain version."""
+    x = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    post = torch.zeros((64,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bm25_topk_fused(x, x, x.float(), post, post.float(), 10, k=4,
+                        p_max=16)
+
+
+def test_fused_wide_rows_route_to_segsum():
+    """T * p_max past 16384 lanes takes bm25_topk_segsum in both
+    packages (bm25_pallas.py:409-413)."""
+    t, p_max = 8, 4096
+    rng = np.random.default_rng(5)
+    *arrays, n_valid = chip_smoke.csr_windows(rng, 2, t, p_max, 50_000)
+    arrays[1] = np.minimum(arrays[1], 96)  # short windows: small row sums
+    j, tt = _both(arrays)
+    wv, wi = jax_fused(*j, jnp.int32(n_valid), k=10, p_max=p_max)
+    gv, gi = bm25_topk_fused(*tt, n_valid, k=10, p_max=p_max)
+    sv, si = bm25_topk_segsum(*tt, n_valid, k=10, p_max=p_max)
+    assert torch.equal(gv, sv) and torch.equal(gi, si)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-4)
+    assert (gi.numpy()[:, 0] >= 0).all()
+
+
+def test_fused_keeps_the_t_window_quirk():
+    """A doc repeated more than T times in one term's window (the eval
+    suite's postings: sorted random doc ids) sums only T of its lanes in
+    the fused merge, while the segsum path sums them all. The port keeps
+    the fused function's answer."""
+    t, p_max = 2, 16
+    post_doc = np.array([3] * 5 + [7, 9] + [11] * 9 + [2**30] * 16, np.int32)
+    post_impact = np.ones(len(post_doc), np.float32)
+    starts = np.array([[0, 16]], np.int32)
+    lens = np.array([[16, 0]], np.int32)
+    idf = np.array([[1.0, 1.0]], np.float32)
+    arrays = [starts, lens, idf, post_doc, post_impact]
+    j, tt = _both(arrays)
+    wv, wi = jax_fused(*j, jnp.int32(100), k=4, p_max=p_max)
+    gv, gi = bm25_topk_fused(*tt, 100, k=4, p_max=p_max)
+    sv, si = bm25_topk_segsum(*tt, 100, k=4, p_max=p_max)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
+    fused = dict(zip(gi[0].tolist(), gv[0].tolist()))
+    full = dict(zip(si[0].tolist(), sv[0].tolist()))
+    assert fused[11] == pytest.approx(2.0) and full[11] == pytest.approx(9.0)
+    assert fused[3] == pytest.approx(2.0) and full[3] == pytest.approx(5.0)
+
+
+def test_fused_takes_each_doc_once():
+    """A clamped window that spans two terms is not doc-sorted, so doc 5
+    ends two segments; select_topk (JAX's and the plain version's) takes
+    it once."""
+    arrays = [np.array(x, dt) for x, dt in (
+        ([[3]], np.int32), ([[4]], np.int32), ([[1.0]], np.float32),
+        ([5, 9, 2, 5], np.int32), ([1.0, 2.0, 3.0, 4.0], np.float32))]
+    j, tt = _both(arrays)
+    wv, wi = jax_fused(*j, jnp.int32(10), k=4, p_max=4)
+    gv, gi = bm25_topk_fused(*tt, 10, k=4, p_max=4)
+    assert gi.tolist() == np.asarray(wi).tolist() == [[5, 2, 9, -1]]
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
+
+
+def _segsum_pair(args, k, p_max):
+    st, ln, idf, pd, pi, dn, nv = (np.asarray(a) for a in args)
+    tt = [torch.from_numpy(np.array(x)) for x in (st, ln, idf, pd, pi)]
+    wv, wi = jax_segsum(*args[:5], args[6], k=k, p_max=p_max)
+    gv, gi = bm25_topk_segsum(*tt, int(nv), k=k, p_max=p_max)
+    return (np.asarray(wv), np.asarray(wi)), (gv.numpy(), gi.numpy()), tt, dn
+
+
+@pytest.mark.parametrize("t,p_max,k", [(4, 64, 10), (1, 32, 5), (5, 64, 10)])
+def test_segsum_and_scatter_match_jax(t, p_max, k):
+    """tests/test_bm25_segsum.py's make_args cases (t=5 is not a power of
+    two: the stable-sort branch). make_args empties each query's last
+    slot, so its single-term case has no hits, as in that file."""
+    args = make_args(np.random.default_rng(t * 7 + p_max), t=t, p_max=p_max)
+    (wv, wi), (gv, gi), tt, dn = _segsum_pair(args, k, p_max)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_allclose(gv, wv, atol=1e-4)
+    sv, si = jax_bm25_topk(*args, k=k, p_max=p_max)
+    cv, ci = bm25_topk(*tt, torch.from_numpy(np.array(dn)), int(args[6]),
+                       k=k, p_max=p_max)
+    np.testing.assert_array_equal(ci.numpy(), np.asarray(si))
+    np.testing.assert_allclose(cv.numpy(), np.asarray(sv), atol=1e-4)
+    np.testing.assert_allclose(cv.numpy(), gv, atol=1e-4)
+    assert (gi[:, 0] >= 0).all() == (t > 1)
+
+
+def test_segsum_duplicate_doc_merge():
+    starts = np.array([[0, 2]], np.int32)
+    lens = np.array([[2, 2]], np.int32)
+    idf = np.array([[1.0, 2.0]], np.float32)
+    post_doc = np.array([3, 7, 3, 9, 2**30, 2**30], np.int32)
+    post_impact = np.array([1.1, 1.1, 1.1, 1.1, 0.0, 0.0], np.float32)
+    tt = [torch.from_numpy(x) for x in (starts, lens, idf, post_doc,
+                                        post_impact)]
+    v, i = bm25_topk_segsum(*tt, 16, k=3, p_max=2)
+    wv, wi = jax_segsum(*(jnp.asarray(x) for x in (starts, lens, idf,
+                                                   post_doc, post_impact)),
+                        jnp.int32(16), k=3, p_max=2)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+    got = {int(d): float(s) for s, d in zip(v[0], i[0]) if d >= 0}
+    assert got[3] == pytest.approx(3.0 * 1.1, abs=1e-5)
+    assert got[7] == pytest.approx(1.1, abs=1e-5)
+    assert got[9] == pytest.approx(2.2, abs=1e-5)
+
+
+def test_segsum_and_fused_no_hits():
+    starts = torch.zeros((2, 4), dtype=torch.int32)
+    lens = torch.zeros((2, 4), dtype=torch.int32)
+    idf = torch.ones((2, 4))
+    post_doc = torch.full((8,), 2**30, dtype=torch.int32)
+    post_impact = torch.zeros(8)
+    args = (starts, lens, idf, post_doc, post_impact, 8)
+    for fn in (bm25_topk_segsum, bm25_topk_fused):
+        v, i = fn(*args, k=3, p_max=4)
+        assert (i == -1).all() and (v <= NEG_INF / 2).all()
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("merge_segsum_kernel<false, false, false>", "K2"),
+    ("merge_segsum_kernel<(bool)1, (bool)0, (bool)0>", "K2"),
+    ("merge_segsum_kernel<true, true, false>", "K3"),
+    ("merge_segsum_kernel<true, false, true>", "K2'"),
+    ("dense_co_scan_kernel<__nv_bfloat16, 64>", "K7"),
+    ("dense_scan_kernel<signed char>", "K5"),
+    ("dense_scan_kernel<__nv_bfloat16>", "K1"),
+])
+def test_profile_names_map_to_port_kernels(name, kernel):
+    """chip_smoke's profile sums device time by port kernel; K2, K3 and
+    K2' share one templated body."""
+    assert chip_smoke.port_kernel(name) == kernel

@@ -183,3 +183,40 @@ def test_ivf_kb_on_card_matches_cpu(cuda, quant, tmp_path):
         for g, w, r in zip(got, want, back):
             assert [x.chunk_id for x in g.results] == [x.chunk_id for x in w.results]
             assert [x.chunk_id for x in r.results] == [x.chunk_id for x in g.results]
+
+
+@pytest.mark.parametrize("t,p_max,cbits", [(8, 2048, 14), (2, 64, 0),
+                                           (2, 16, 14)])
+def test_fused_bm25_kernel_matches_plain(cuda, t, p_max, cbits):
+    before = launch_counts["bm25_topk_fused"]
+    chip_smoke.check_fused(32, t, p_max, cbits, k=8, n_docs=100_000,
+                           seed=t + p_max)
+    assert launch_counts["bm25_topk_fused"] == before + 1
+
+
+@pytest.mark.parametrize("b,n_rows,n_valid,d,k,dtype", [
+    (130, 2500, 2500, 96, 5, torch.bfloat16),   # multi query-tile
+    (9, 257, 200, 130, 3, torch.float32),       # unaligned D, n_valid < N
+])
+def test_dense_co_kernel_matches_plain(cuda, b, n_rows, n_valid, d, k,
+                                       dtype):
+    before = launch_counts["dense_topk_co"]
+    err = chip_smoke.check_dense_co(b, n_rows, n_valid, d, k, dtype,
+                                    seed=b + k)
+    assert err <= chip_smoke.TOL
+    assert launch_counts["dense_topk_co"] == before + 1
+
+
+def test_fused_bm25_kernel_takes_each_doc_once(cuda):
+    """A clamped window that spans two terms is not sorted, so doc 5 ends
+    two segments; like select_topk, K2' takes it once."""
+    from tpurag_torch.kernels.bm25_merge import (bm25_topk_fused,
+                                                 bm25_topk_fused_ref)
+
+    args = [torch.tensor(x, dtype=dt, device="cuda") for x, dt in (
+        ([[3]], torch.int32), ([[4]], torch.int32), ([[1.0]], torch.float32),
+        ([5, 9, 2, 5], torch.int32), ([1.0, 2.0, 3.0, 4.0], torch.float32))]
+    got = bm25_topk_fused(*args, 10, k=4, p_max=4)
+    want = bm25_topk_fused_ref(*args, 10, k=4, p_max=4)
+    assert got[1].tolist() == want[1].tolist() == [[5, 2, 9, -1]]
+    assert torch.equal(got[0], want[0])

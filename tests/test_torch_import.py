@@ -1,5 +1,5 @@
 """tpurag_torch stands alone: importing it pulls in neither jax nor tpurag,
-and no module of it imports them."""
+and no module of it, nor chip_smoke.py, imports them."""
 
 import ast
 import pathlib
@@ -10,11 +10,12 @@ import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "tpurag_torch"
 MODULES = sorted(str(p.relative_to(PKG.parent)) for p in PKG.rglob("*.py")
-                 if "_build" not in p.relative_to(PKG).parts)
+                 if "_build" not in p.relative_to(PKG).parts) + ["chip_smoke.py"]
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, tpurag_torch, tpurag_torch.api.knowledge_base; "
+    code = ("import sys, tpurag_torch, tpurag_torch.api.knowledge_base, "
+            "tpurag_torch.eval.bench; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'tpurag.')) or m == 'tpurag']; "
             "assert not bad, bad; print('ok')")

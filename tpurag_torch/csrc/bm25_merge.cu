@@ -40,6 +40,20 @@
 // < TILE in one shared-memory launch per tile; a last launch writes the
 // segment sums. Every stage applies the same exchange to the same array,
 // so the result is the one-block network's, bit for bit.
+//
+// K2' replaces tpurag/kernels/bm25_pallas.py:bm25_topk_fused: the CSR
+// window gather of tpurag/kernels/bm25.py:_gather_candidates, the odd-term
+// flip, then K2. In the JAX package the gather is XLA code that writes the
+// (B, T * p_max) candidate rows to device memory for the Pallas kernel to
+// read back; here it is K2's load stage (GATHER = true), so each lane reads
+// its posting (doc + impact, 8 bytes, neighbouring lanes on neighbouring
+// postings) and nothing else touches device memory but the (B, k) result.
+// A lane of term j and window offset o: start = clamp(starts[j], 0,
+// max(nnz - p, 0)), valid = o < lens[j] && doc < n_valid, contribution
+// idf[j] * impact (one rounding) or 0, doc or 2^30. The packed form takes
+// the row max over those contributions (invalid zeros included), as K2's
+// plain version does over the gathered row. Bit-identical to K2's plain
+// version of the gathered row.
 
 #include <cuda_runtime.h>
 
@@ -54,6 +68,18 @@ constexpr int MAX_THREADS = 1024;
 constexpr int TILE = MAX_LANES_PER_THREAD * MAX_THREADS;  // 16384 lanes
 constexpr int STAGE_THREADS = 256;
 
+// CSR postings and the (B, T) query windows into them (K2').
+struct Csr {
+  const int* starts;
+  const int* lens;
+  const float* idf;
+  const int* post_doc;
+  const float* post_impact;
+  int nnz;
+  int n_valid;
+  int T;
+};
+
 // The packed key of (doc d, contribution c): round(c / safe * qmax), half
 // to even, clamped as an integer; docs that do not fit become the pad key.
 __device__ __forceinline__ int pack_key(int d, float c, float safe,
@@ -67,6 +93,23 @@ __device__ __forceinline__ int pack_key(int d, float c, float safe,
 // Input lane of merged lane i when odd p-blocks load flipped.
 __device__ __forceinline__ int src_lane(int i, int p, bool flip) {
   return (flip && (i & p)) ? (i ^ (p - 1)) : i;
+}
+
+// Lane i of row `row`'s flipped candidate row, gathered from the CSR
+// postings: term j = src / p at window offset o = src % p.
+__device__ __forceinline__ void gather_lane(const Csr& c, size_t row, int i,
+                                            int p, int& d, float& v) {
+  const int src = src_lane(i, p, true);
+  const int o = src & (p - 1);
+  const size_t slot = row * c.T + src / p;
+  const int lim = c.nnz > p ? c.nnz - p : 0;
+  int st = c.starts[slot];
+  st = st < 0 ? 0 : (st > lim ? lim : st);
+  const int dd = c.post_doc[st + o];
+  const float imp = c.post_impact[st + o];
+  const bool valid = o < c.lens[slot] && dd < c.n_valid;
+  d = valid ? dd : BIG;
+  v = valid ? __fmul_rn(c.idf[slot], imp) : 0.f;
 }
 
 // Compare-exchange of lanes lo < hi in a level kk block; lo_global is lo's
@@ -155,12 +198,13 @@ __device__ float row_max(const float* crow, int W, float* red_v, int* red_i,
 // One block per row, the whole row in shared memory. FULL (K3): odd
 // p-blocks load flipped and out_v/out_i receive the (B, W) seg / doc_s
 // rows; else (K2) the input arrives flipped and out_v/out_i receive the
-// (B, k) top-k.
-template <bool PACKED, bool FULL>
+// (B, k) top-k. GATHER (K2'): the row is gathered from `csr` (doc and con
+// unused), odd terms flipped as they load.
+template <bool PACKED, bool FULL, bool GATHER>
 __global__ void __launch_bounds__(MAX_THREADS)
     merge_segsum_kernel(const int* __restrict__ doc,
-                        const float* __restrict__ con, int W, int p, int t,
-                        int cbits, int k, float* out_v, int* out_i) {
+                        const float* __restrict__ con, Csr csr, int W, int p,
+                        int t, int cbits, int k, float* out_v, int* out_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float red_v[32];
   __shared__ int red_i[32];
@@ -175,7 +219,41 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   float scale = 0.f;
   int big = BIG;
-  if (PACKED) {
+  if (GATHER) {
+    // Lane i = tid + r * nt's gathered (doc, con) stays in registers until
+    // the row max is known.
+    int gd[MAX_LANES_PER_THREAD];
+    float gc[MAX_LANES_PER_THREAD];
+    float m = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < MAX_LANES_PER_THREAD; ++r) {
+      const int i = tid + r * nt;
+      if (i < W) {
+        gather_lane(csr, row, i, p, gd[r], gc[r]);
+        m = fmaxf(m, gc[r]);
+      }
+    }
+    float safe = 0.f;
+    if (PACKED) {
+      int unused_i = 0, unused_p = 0;
+      tr::block_lex_max3(m, unused_i, unused_p, red_v, red_i, red_p);
+      safe = fmaxf(m, 1e-30f);
+      scale = __fdiv_rn(safe, (float)((1 << cbits) - 1));
+      big = PAD_KEY >> cbits;
+    }
+#pragma unroll
+    for (int r = 0; r < MAX_LANES_PER_THREAD; ++r) {
+      const int i = tid + r * nt;
+      if (i < W) {
+        if (PACKED) {
+          key[i] = pack_key(gd[r], gc[r], safe, cbits);
+        } else {
+          key[i] = gd[r];
+          cs[i] = gc[r];
+        }
+      }
+    }
+  } else if (PACKED) {
     const float safe = fmaxf(row_max(crow, W, red_v, red_i, red_p), 1e-30f);
     for (int i = tid; i < W; i += nt) {
       const int src = src_lane(i, p, FULL);
@@ -247,9 +325,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
       ov[pass] = bv;
       oi[pass] = bd;
     }
+    // Every lane of the taken doc leaves the race (select_topk's rule): a
+    // row that was not sorted going in (a clamped window that spans two
+    // terms) can end one doc's segment twice. Only positive lanes are
+    // still in it.
 #pragma unroll
-    for (int r = 0; r < MAX_LANES_PER_THREAD; ++r)
-      if (tid + r * nt == bl) seg[r] = tr::kNegInf;
+    for (int r = 0; r < MAX_LANES_PER_THREAD; ++r) {
+      const int i = tid + r * nt;
+      if (i < W && seg[r] > 0.f && doc_of<PACKED>(key, i, cbits) == bd)
+        seg[r] = tr::kNegInf;
+    }
   }
 }
 
@@ -353,20 +438,20 @@ cudaError_t allow_smem(F* fn, size_t bytes) {
                               (int)bytes);
 }
 
-template <bool PACKED, bool FULL>
+template <bool PACKED, bool FULL, bool GATHER = false>
 cudaError_t launch_rows(const int* doc, const float* con, int B, int W, int p,
                         int t, int cbits, int k, float* out_v, int* out_i,
-                        cudaStream_t st) {
+                        cudaStream_t st, Csr csr = Csr{}) {
   int nt = W / MAX_LANES_PER_THREAD;
   nt = nt < 32 ? 32 : (nt > MAX_THREADS ? MAX_THREADS : nt);
   if ((W + nt - 1) / nt > MAX_LANES_PER_THREAD) return cudaErrorInvalidValue;
   const size_t smem = (size_t)W * (PACKED ? sizeof(int)
                                           : sizeof(int) + sizeof(float));
-  cudaError_t err = allow_smem(merge_segsum_kernel<PACKED, FULL>, smem);
+  cudaError_t err =
+      allow_smem(merge_segsum_kernel<PACKED, FULL, GATHER>, smem);
   if (err != cudaSuccess) return err;
-  merge_segsum_kernel<PACKED, FULL><<<B, nt, smem, st>>>(doc, con, W, p, t,
-                                                         cbits, k, out_v,
-                                                         out_i);
+  merge_segsum_kernel<PACKED, FULL, GATHER><<<B, nt, smem, st>>>(
+      doc, con, csr, W, p, t, cbits, k, out_v, out_i);
   return cudaGetLastError();
 }
 
@@ -416,6 +501,29 @@ extern "C" int tr_merge_segsum_topk(const int* doc, const float* con, int B,
                                                 k, out_v, out_i, st)
                      : launch_rows<false, false>(doc, con, B, W, p, t, cbits,
                                                  k, out_v, out_i, st));
+}
+
+// K2'. starts / lens (B, T) int32 and idf (B, T) float32 windows into the
+// nnz postings post_doc int32 / post_impact float32; T and p powers of two
+// with T * p <= TILE and p <= nnz.
+extern "C" int tr_bm25_topk_fused(const int* starts, const int* lens,
+                                  const float* idf, const int* post_doc,
+                                  const float* post_impact, int nnz,
+                                  int n_valid, int B, int T, int p, int cbits,
+                                  int k, float* out_v, int* out_i,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = T * p;
+  if (T < 1 || (T & (T - 1)) || p < 1 || (p & (p - 1)) || W > TILE ||
+      p > nnz)
+    return (int)cudaErrorInvalidValue;
+  const Csr csr{starts, lens, idf, post_doc, post_impact, nnz, n_valid, T};
+  return (int)(cbits ? launch_rows<true, false, true>(
+                           nullptr, nullptr, B, W, p, T, cbits, k, out_v,
+                           out_i, st, csr)
+                     : launch_rows<false, false, true>(
+                           nullptr, nullptr, B, W, p, T, cbits, k, out_v,
+                           out_i, st, csr));
 }
 
 // K3. Rows of W > TILE lanes need scratch: key_rows (B, W) int32,

@@ -40,6 +40,20 @@
 //   warm almost every tile costs one compare per score. Any k works.
 // - Later work: TMA + wgmma with a ring of tiles, and an early skip of a
 //   tile whose maximum cannot enter any list.
+//
+// K7 replaces tpurag/kernels/dense.py:dense_topk_pallas_co (body
+// _dense_topk_kernel_co): K1's contract with the corpus loop outside the
+// query loop. K1 reads the corpus once per 64-query tile (8 times at 512
+// queries); K7 reads it once, and the queries (1 MB at 512 x 1024 bf16)
+// many times, from L2. The grid is corpus splits only: block s stages each
+// corpus tile of its split whole in shared memory (TN = 64 rows at D =
+// 1024 bf16: 129 KB; 32 or 16 rows where 64 do not fit), scores it against
+// every query tile in turn (queries stream through a (TQ, TD) slice, the
+// products in K1's order, so the scores are K1's), and folds each score
+// tile into that query tile's running lists, which live in the (B, S, k)
+// scratch in device memory. K1's merge kernel then takes the S*k
+// candidates of each query. No batch cap (the JAX wrapper's 4096 was a
+// VMEM cap).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -383,6 +397,248 @@ __global__ void __launch_bounds__(MERGE_THREADS)
                  red_v, red_i, red_p);
 }
 
+// -- K7: corpus-outer order ------------------------------------------------
+
+// Shared memory of K7 with corpus tiles of tn rows: the (tn, Dp) tile
+// (Dp = D rounded up to TD), a (TQ, TD) query slice and the score tile.
+// kernels/dense.py:co_tile_rows picks tn by the same sum.
+template <typename T>
+size_t co_bytes(int tn, int D) {
+  const int dp = (D + TD - 1) / TD * TD;
+  return (size_t)tn * (dp + 16 / sizeof(T)) * sizeof(T) +
+         (size_t)TQ * Stage<T>::LD * sizeof(T) +
+         (size_t)TQ * (tn + 4) * sizeof(float);
+}
+
+// Stage corpus rows [n0, n0 + TNC) x all Dp columns into es (stride LDE),
+// zero past N and D.
+template <typename T, int TNC>
+__device__ void stage_tile(T* es, const T* emb, int n0, int N, int D, int Dp,
+                           int LDE, bool vec) {
+  if (vec) {
+    constexpr int VEC = 16 / sizeof(T);
+    const int per_row = Dp / VEC;
+    for (int e = threadIdx.x; e < TNC * per_row; e += THREADS) {
+      const int r = e / per_row;
+      const int c = (e % per_row) * VEC;
+      const int gr = n0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < N && c < D)
+        val = *reinterpret_cast<const uint4*>(emb + (size_t)gr * D + c);
+      *reinterpret_cast<uint4*>(es + r * LDE + c) = val;
+    }
+  } else {
+    for (int e = threadIdx.x; e < TNC * Dp; e += THREADS) {
+      const int r = e / Dp;
+      const int c = e % Dp;
+      const int gr = n0 + r;
+      T val;
+      set_zero(val);
+      if (gr < N && c < D) val = emb[(size_t)gr * D + c];
+      es[r * LDE + c] = val;
+    }
+  }
+}
+
+// Score tile sc[TQ][TNC + 4] = q[q0 : q0+TQ] . es^T with the corpus tile
+// resident in shared memory; the query rows stream through a (TQ, TD)
+// slice. The sums run in K1's order (D slices of TD, then k-steps of 16 or
+// single columns), so the scores are K1's.
+template <int TNC>
+__device__ void co_score_tile(const __nv_bfloat16* q,
+                              const __nv_bfloat16* es, int LDE, int B, int D,
+                              int Dp, int q0, bool vec, __nv_bfloat16* qs,
+                              float* sc) {
+  using namespace nvcuda;
+  constexpr int LD = Stage<__nv_bfloat16>::LD;
+  constexpr int LDC = TNC + 4;
+  constexpr int FC = TNC / 16;                 // fragment columns
+  constexpr int NF = (TQ / 16) * FC;           // fragments of the tile
+  constexpr int FPW = (NF + WARPS - 1) / WARPS;  // fragments per warp
+  const int warp = threadIdx.x >> 5;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FPW];
+#pragma unroll
+  for (int f = 0; f < FPW; ++f) wmma::fill_fragment(acc[f], 0.f);
+  for (int d0 = 0; d0 < Dp; d0 += TD) {
+    __syncthreads();
+    stage_slice(qs, q, TQ, q0, B, d0, D, vec);
+    __syncthreads();
+    for (int kk = 0; kk < TD; kk += 16) {
+#pragma unroll
+      for (int f = 0; f < FPW; ++f) {
+        const int fi = warp + f * WARPS;
+        if (fi < NF) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                         wmma::row_major> a;
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                         wmma::col_major> b;
+          wmma::load_matrix_sync(a, qs + (fi / FC) * 16 * LD + kk, LD);
+          wmma::load_matrix_sync(b, es + (fi % FC) * 16 * LDE + d0 + kk, LDE);
+          wmma::mma_sync(acc[f], a, b, acc[f]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < FPW; ++f) {
+    const int fi = warp + f * WARPS;
+    if (fi < NF)
+      wmma::store_matrix_sync(sc + (fi / FC) * 16 * LDC + (fi % FC) * 16,
+                              acc[f], LDC, wmma::mem_row_major);
+  }
+  __syncthreads();
+}
+
+template <int TNC>
+__device__ void co_score_tile(const float* q, const float* es, int LDE,
+                              int B, int D, int Dp, int q0, bool vec,
+                              float* qs, float* sc) {
+  constexpr int LD = Stage<float>::LD;
+  constexpr int LDC = TNC + 4;
+  constexpr int CJ = TNC / 16;
+  const int ty = threadIdx.x / 16;  // rows ty*4 .. ty*4+3
+  const int tx = threadIdx.x % 16;  // cols tx + 16*j, j < CJ
+  float acc[4][CJ];
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
+  for (int d0 = 0; d0 < Dp; d0 += TD) {
+    __syncthreads();
+    stage_slice(qs, q, TQ, q0, B, d0, D, vec);
+    __syncthreads();
+    for (int d = 0; d < TD; ++d) {
+      float a[4], b[CJ];
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
+      for (int j = 0; j < CJ; ++j) b[j] = es[(tx + 16 * j) * LDE + d0 + d];
+      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < CJ; ++j)
+      sc[(ty * 4 + i) * LDC + tx + 16 * j] = acc[i][j];
+  __syncthreads();
+}
+
+// grid (S): block s walks the corpus tiles of split s. Each tile is staged
+// once and scored against every query tile in turn; each query's running
+// list of the split lives in part[(query * S + s) * k : ... + k] (global
+// memory, only this block touches it), always folded by warp query % 8.
+template <typename T, int TNC>
+__global__ void __launch_bounds__(THREADS)
+    dense_co_scan_kernel(const T* __restrict__ q, const T* __restrict__ emb,
+                         int B, int N, int D, int n_valid, int k, int S,
+                         bool vec, float* part_v, int* part_i) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int LDC = TNC + 4;
+  constexpr int CPL = (TNC + 31) / 32;  // candidates per lane
+  const int Dp = (D + TD - 1) / TD * TD;
+  const int LDE = Dp + 16 / (int)sizeof(T);  // 16-byte skew per row
+  T* es = reinterpret_cast<T*>(smem);
+  T* qs = es + TNC * LDE;
+  float* sc = reinterpret_cast<float*>(qs + TQ * Stage<T>::LD);
+
+  const int s = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = (n_valid + TNC - 1) / TNC;
+  const int per_split = (n_tiles + S - 1) / S;
+  const int t_begin = s * per_split;
+  const int t_end = min(n_tiles, t_begin + per_split);
+
+  for (int r = warp; r < B; r += WARPS)
+    tr::warp_list_init(part_v + ((size_t)r * S + s) * k,
+                       part_i + ((size_t)r * S + s) * k, k, BIG_ID);
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int n0 = t * TNC;
+    // The previous tile's last score tile ended in a barrier after its
+    // last read of es.
+    stage_tile<T, TNC>(es, emb, n0, N, D, Dp, LDE, vec);
+    for (int q0 = 0; q0 < B; q0 += TQ) {
+      co_score_tile<TNC>(q, es, LDE, B, D, Dp, q0, vec, qs, sc);
+      for (int r = warp; r < TQ && q0 + r < B; r += WARPS) {
+        float* lv = part_v + ((size_t)(q0 + r) * S + s) * k;
+        int* li = part_i + ((size_t)(q0 + r) * S + s) * k;
+        float kv = lv[k - 1];
+        int ki = li[k - 1];
+        float v[CPL];
+        int id[CPL];
+        bool cand[CPL];
+        bool any = false;
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) {
+          const int c = lane + 32 * j;
+          id[j] = n0 + c;
+          v[j] = c < TNC ? sc[r * LDC + c] : -INFINITY;
+          cand[j] = c < TNC && id[j] < n_valid &&
+                    tr::lex_gt(v[j], id[j], kv, ki);
+          any |= cand[j];
+        }
+        while (__any_sync(tr::kFullMask, any)) {
+          float bv = -INFINITY;
+          int bi = tr::kIntMax;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j)
+            if (cand[j] && tr::lex_gt(v[j], id[j], bv, bi)) {
+              bv = v[j];
+              bi = id[j];
+            }
+          int unused = 0;
+          tr::warp_lex_max3(bv, bi, unused);
+          tr::warp_list_insert(lv, li, k, bv, bi);
+          kv = lv[k - 1];
+          ki = li[k - 1];
+          any = false;
+#pragma unroll
+          for (int j = 0; j < CPL; ++j) {
+            cand[j] = cand[j] && id[j] != bi &&
+                      tr::lex_gt(v[j], id[j], kv, ki);
+            any |= cand[j];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int TNC>
+cudaError_t launch_co_tn(const void* q, const void* emb, int B, int N, int D,
+                         int n_valid, int k, int S, float* part_v,
+                         int* part_i, cudaStream_t stream) {
+  const size_t smem = co_bytes<T>(TNC, D);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  const bool vec = (D * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(emb) % 16 == 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      dense_co_scan_kernel<T, TNC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dense_co_scan_kernel<T, TNC><<<S, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(emb), B, N, D, n_valid,
+      k, S, vec, part_v, part_i);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_co(const void* q, const void* emb, int B, int N, int D,
+                      int n_valid, int k, int tn, int S, float* part_v,
+                      int* part_i, cudaStream_t stream) {
+  switch (tn) {
+    case 64:
+      return launch_co_tn<T, 64>(q, emb, B, N, D, n_valid, k, S, part_v,
+                                 part_i, stream);
+    case 32:
+      return launch_co_tn<T, 32>(q, emb, B, N, D, n_valid, k, S, part_v,
+                                 part_i, stream);
+    case 16:
+      return launch_co_tn<T, 16>(q, emb, B, N, D, n_valid, k, S, part_v,
+                                 part_i, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_dense(const void* q, const void* emb, const float* e_scale,
                          int B, int N, int D, int n_valid, int k, int S,
@@ -444,6 +700,24 @@ extern "C" int tr_dense_topk_q8(const void* q, const void* emb,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_dense<int8_t>(q, emb, e_scale, B, N, D, n_valid,
                                          k, S, part_v, part_i, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
+}
+
+// K7: K1's contract in corpus-outer order; corpus tiles of tn rows (64,
+// 32 or 16, chosen by the caller to fit shared memory), S corpus splits,
+// one block each, part_v / part_i (B, S, k) scratch.
+extern "C" int tr_dense_topk_co(const void* q, const void* emb, int dtype,
+                                int B, int N, int D, int n_valid, int k,
+                                int tn, int S, float* part_v, int* part_i,
+                                float* out_v, int* out_i, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      dtype == 1 ? launch_co<__nv_bfloat16>(q, emb, B, N, D, n_valid, k, tn,
+                                            S, part_v, part_i, st)
+                 : launch_co<float>(q, emb, B, N, D, n_valid, k, tn, S,
+                                    part_v, part_i, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
 }

@@ -33,6 +33,11 @@ merge_segsum_full takes the P-blocks plain ascending (the kernel flips
 the odd ones as it loads them); t == 1 rows are already sorted with
 unique docs and come back as (where(doc < 2^30, con, NEG_INF), doc)
 without a launch.
+
+``bm25_topk_fused`` (K2') is K2 fed straight from CSR postings: the
+kernel gathers each query's term windows itself (kernels/bm25.
+gather_candidates, odd terms flipped), so the candidate rows never reach
+device memory.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import ctypes
 
 import torch
 
+from tpurag_torch.kernels.bm25 import bm25_topk_segsum, gather_candidates
 from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
                                           launch_counts, load_kernels)
 from tpurag_torch.kernels.topk import select_topk
@@ -245,3 +251,80 @@ def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
     check_launch(err, "merge_segsum_full")
     launch_counts["merge_segsum_full"] += 1
     return seg, doc_s
+
+
+def bm25_topk_fused_ref(starts, lens, idf, post_doc, post_impact,
+                        n_valid: int, k: int, p_max: int, cbits: int = 0):
+    """Plain version of K2': gather_candidates, odd terms flipped, then
+    K2's plain version; rows past MAX_MERGE_LANES take bm25_topk_segsum,
+    as the JAX package routes them."""
+    b, t = starts.shape
+    if not merge_ok(t * p_max):
+        return bm25_topk_segsum(starts, lens, idf, post_doc, post_impact,
+                                n_valid, k=k, p_max=p_max)
+    doc, con = gather_candidates(starts, lens, idf, post_doc, post_impact,
+                                 n_valid, p_max)
+    if t > 1:
+        doc = flip_odd_blocks(doc, p_max, t)
+        con = flip_odd_blocks(con, p_max, t)
+    return merge_segsum_topk_ref(doc, con, k, p_max, t, cbits)
+
+
+def bm25_topk_fused(starts: torch.Tensor, lens: torch.Tensor,
+                    idf: torch.Tensor, post_doc: torch.Tensor,
+                    post_impact: torch.Tensor, n_valid: int, k: int,
+                    p_max: int, cbits: int = 0):
+    """(B, k) BM25 top-k (scores, ids) of (B, T) CSR windows (starts,
+    lens int32, idf float32) into doc-ascending postings (post_doc int32,
+    post_impact float32, padded by p_max), empties as (NEG_INF, -1). T and
+    p_max are powers of two. CPU tensors take the plain version; CUDA
+    tensors are checked, then launch K2' (csrc/bm25_merge.cu) or raise.
+    Rows of T * p_max > MAX_MERGE_LANES lanes take bm25_topk_segsum
+    (plain torch) on either device, as the JAX package routes them."""
+    dev = post_doc.device
+    if dev.type == "cpu":
+        return bm25_topk_fused_ref(starts, lens, idf, post_doc, post_impact,
+                                   n_valid, k, p_max, cbits)
+    if dev.type != "cuda":
+        raise ValueError(f"bm25_topk_fused: unsupported device {dev}")
+    if starts.dim() != 2 or lens.shape != starts.shape \
+            or idf.shape != starts.shape:
+        raise ValueError("bm25_topk_fused: starts, lens and idf must be "
+                         "equal (B, T) tensors")
+    b, t = starts.shape
+    if t < 1 or t & (t - 1) or p_max < 1 or p_max & (p_max - 1):
+        raise ValueError(f"bm25_topk_fused: T={t} and p_max={p_max} must be "
+                         "powers of two")
+    if any(x.device != dev for x in (starts, lens, idf, post_impact)):
+        raise ValueError("bm25_topk_fused: inputs on different devices")
+    if (starts.dtype != torch.int32 or lens.dtype != torch.int32
+            or post_doc.dtype != torch.int32 or idf.dtype != torch.float32
+            or post_impact.dtype != torch.float32):
+        raise TypeError("bm25_topk_fused: starts, lens, post_doc must be "
+                        "int32, idf and post_impact float32")
+    nnz = post_doc.shape[0]
+    if post_doc.dim() != 1 or post_impact.shape != post_doc.shape:
+        raise ValueError("bm25_topk_fused: postings must be equal 1-D tensors")
+    if nnz < p_max or nnz >= 2**31:
+        raise ValueError(f"bm25_topk_fused: {nnz} postings; need p_max="
+                         f"{p_max} <= nnz < 2^31 (the index pads by p_max)")
+    if k < 1 or not 0 <= cbits <= 30:
+        raise ValueError(f"bm25_topk_fused: bad k={k} or cbits={cbits}")
+    if not merge_ok(t * p_max):  # XLA-level code in JAX too: no kernel
+        return bm25_topk_segsum(starts, lens, idf, post_doc, post_impact,
+                                n_valid, k=k, p_max=p_max)
+    tables = [x.contiguous() for x in (starts, lens, idf, post_doc,
+                                       post_impact)]
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_v, out_i
+    fn = load_kernels().tr_bm25_topk_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 3)
+    err = fn(*(x.data_ptr() for x in tables), nnz, int(n_valid), b, t, p_max,
+             cbits, k, out_v.data_ptr(), out_i.data_ptr(), cuda_stream(dev))
+    check_launch(err, "bm25_topk_fused")
+    launch_counts["bm25_topk_fused"] += 1
+    return out_v, out_i

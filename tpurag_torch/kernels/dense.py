@@ -1,5 +1,6 @@
 # Ported from tpurag/kernels/dense.py (dense_topk_xla -> dense_topk_ref,
-# dense_topk_pallas -> the CUDA kernel in csrc/dense_topk.cu).
+# dense_topk_pallas and dense_topk_pallas_co -> the CUDA kernels in
+# csrc/dense_topk.cu).
 """Dense cosine-similarity top-k.
 
 Embeddings and queries are L2-normalized by the index layer, so the dot
@@ -7,6 +8,9 @@ product is the cosine score. ``dense_topk`` is the dispatching wrapper:
 a CUDA corpus goes to the hand-written Hopper kernel (the (B, N) score
 matrix is never written to device memory), a CPU corpus to
 ``dense_topk_ref``, the plain version (one matmul, then a stable sort).
+``dense_topk_co`` computes the same function in corpus-outer order (K7:
+each corpus tile read once and scored against every query tile); no
+path calls it, it is measured beside ``dense_topk``.
 
 Contract (same as the JAX package's Pallas kernel): (B, k) float32
 scores descending and int32 ids, ties to the smaller id, rows at or past
@@ -64,6 +68,26 @@ def dense_splits(b: int, n_valid: int, k: int) -> int:
     return max(1, min(s, MAX_MERGE_CANDIDATES // k))
 
 
+def _check_args(name: str, queries: torch.Tensor, emb: torch.Tensor,
+                n_valid: int, k: int) -> None:
+    """Raise on what the CUDA dense kernels do not take."""
+    if emb.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: corpus dtype {emb.dtype} not supported "
+                        "by the kernel (bfloat16 or float32)")
+    if emb.dim() != 2 or queries.dim() != 2:
+        raise ValueError(f"{name}: queries and corpus must be 2-D")
+    if queries.device != emb.device:
+        raise ValueError(f"{name}: queries and corpus on different devices")
+    if not emb.is_contiguous():
+        raise ValueError(f"{name}: corpus must be contiguous")
+    n, d = emb.shape
+    if queries.shape[1] != d:
+        raise ValueError(f"{name}: dim mismatch {queries.shape[1]} != {d}")
+    if k < 1 or not 0 <= n_valid <= n:
+        raise ValueError(f"{name}: bad k={k} or n_valid={n_valid} "
+                         f"for {n} rows")
+
+
 def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
                k: int):
     """Cosine top-k of (B, D) queries against the first n_valid rows of
@@ -73,23 +97,10 @@ def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
         return dense_topk_ref(queries, emb, n_valid, k)
     if emb.device.type != "cuda":
         raise ValueError(f"dense_topk: unsupported device {emb.device}")
-    if emb.dtype not in DTYPE_CODE:
-        raise TypeError(f"dense_topk: corpus dtype {emb.dtype} not supported "
-                        "by the kernel (bfloat16 or float32)")
-    if emb.dim() != 2 or queries.dim() != 2:
-        raise ValueError("dense_topk: queries and corpus must be 2-D")
-    if queries.device != emb.device:
-        raise ValueError("dense_topk: queries and corpus on different devices")
-    if not emb.is_contiguous():
-        raise ValueError("dense_topk: corpus must be contiguous")
+    n_valid = int(n_valid)
+    _check_args("dense_topk", queries, emb, n_valid, k)
     b, d = queries.shape
     n = emb.shape[0]
-    n_valid = int(n_valid)
-    if d != emb.shape[1]:
-        raise ValueError(f"dense_topk: dim mismatch {d} != {emb.shape[1]}")
-    if k < 1 or not 0 <= n_valid <= n:
-        raise ValueError(f"dense_topk: bad k={k} or n_valid={n_valid} "
-                         f"for {n} rows")
     q = queries.to(emb.dtype).contiguous()
     out_v = torch.empty((b, k), dtype=torch.float32, device=emb.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=emb.device)
@@ -111,4 +122,74 @@ def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
              out_v.data_ptr(), out_i.data_ptr(), cuda_stream(emb.device))
     check_launch(err, "dense_topk")
     launch_counts["dense_topk"] += 1
+    return out_v, out_i
+
+
+# K7's shared-memory budget (csrc/dense_topk.cu: co_bytes): Hopper's
+# per-block limit, the D slice staged per step and each dtype's padded
+# query-slice row.
+MAX_SMEM = 232_448
+TILE_D = 64
+STAGE_LD = {torch.float32: TILE_D + 4, torch.bfloat16: TILE_D + 8}
+
+
+def co_tile_rows(dtype: torch.dtype, d: int) -> int:
+    """Corpus rows per K7 tile: the largest of 64, 32, 16 whose (tn, D)
+    tile (rows padded to TILE_D plus a 16-byte skew), (TILE_Q, TILE_D)
+    query slice and (TILE_Q, tn + 4) fp32 score tile fit one block's
+    shared memory, or 0."""
+    size = torch.finfo(dtype).bits // 8
+    dp = cdiv(d, TILE_D) * TILE_D
+    for tn in (64, 32, 16):
+        if (tn * (dp + 16 // size) * size + TILE_Q * STAGE_LD[dtype] * size
+                + TILE_Q * (tn + 4) * 4 <= MAX_SMEM):
+            return tn
+    return 0
+
+
+def dense_co_splits(n_tiles: int, k: int) -> int:
+    """Corpus splits of K7 (one block each): enough blocks to fill the
+    card, at least one corpus tile each, and few enough partial lists per
+    query for the merge pass."""
+    s = min(TARGET_BLOCKS, max(n_tiles, 1))
+    return max(1, min(s, MAX_MERGE_CANDIDATES // k))
+
+
+def dense_topk_co(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                  k: int):
+    """dense_topk's function in corpus-outer order (K7,
+    csrc/dense_topk.cu): the same (B, k) scores and ids. CPU tensors take
+    the plain version; CUDA tensors launch K7 or raise. Any batch size; D
+    up to what one 16-row corpus tile in shared memory allows (6,784
+    bf16, 3,264 fp32)."""
+    if emb.device.type == "cpu":
+        return dense_topk_ref(queries, emb, n_valid, k)
+    if emb.device.type != "cuda":
+        raise ValueError(f"dense_topk_co: unsupported device {emb.device}")
+    n_valid = int(n_valid)
+    _check_args("dense_topk_co", queries, emb, n_valid, k)
+    b, d = queries.shape
+    n = emb.shape[0]
+    tile = co_tile_rows(emb.dtype, d)
+    if tile == 0:
+        raise ValueError(f"dense_topk_co: D={d} {emb.dtype} rows do not fit "
+                         "a 16-row tile in one block's shared memory")
+    q = queries.to(emb.dtype).contiguous()
+    out_v = torch.empty((b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=emb.device)
+    if b == 0:
+        return out_v, out_i
+    splits = dense_co_splits(cdiv(n_valid, tile), k)
+    part_v = torch.empty((b, splits, k), dtype=torch.float32,
+                         device=emb.device)
+    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=emb.device)
+    fn = load_kernels().tr_dense_topk_co
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 5)
+    err = fn(q.data_ptr(), emb.data_ptr(), DTYPE_CODE[emb.dtype], b, n, d,
+             n_valid, k, tile, splits, part_v.data_ptr(), part_i.data_ptr(),
+             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(emb.device))
+    check_launch(err, "dense_topk_co")
+    launch_counts["dense_topk_co"] += 1
     return out_v, out_i
