@@ -8,8 +8,10 @@ non-zero before the result line):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles tpurag_torch/csrc with nvcc (sm_90a);
   3. K1 dense_topk against dense_topk_ref on the card at the main-path
-     shape (1024 queries x 100k of 131072 rows x 1024 bf16, k=8) and at
-     k=200 on a smaller corpus; torch.topk(q @ emb.T) timed beside it;
+     shape (1024 queries x 100k of 131072 rows x 1024 bf16, k=8), its
+     TMA + wgmma body at SM90_SHAPES (each twice), its first body at k=200,
+     in fp32 and at an unaligned D; the two bodies and torch.topk(q @
+     emb.T) timed on the same inputs;
   4. K2 merge_segsum_topk against merge_segsum_topk_ref for every width
      class p in {64, 256, 1024, 2048} x t in {1, 2, 8}, packed and not;
      K3 merge_segsum_full against merge_segsum_full_ref at every narrow
@@ -31,9 +33,10 @@ non-zero before the result line):
      ingest through add_chunks, 4 search_batch(hybrid) requests of 512
      queries (about half hold a wide term) with every counter reset just
      before, one profiled request, 64 hard queries' keyword top-8 against
-     a CPU index of the same postings; K1 (within TOL at near ties), K2,
-     K3 and K4 (bit for bit) held to their plain versions and timed on
-     the very inputs one request gave them.
+     a CPU index of the same postings; every K1 launch took the TMA +
+     wgmma body; K1 (both bodies, within TOL at near ties), K2, K3 and K4
+     (bit for bit) held to their plain versions and timed on the very
+     inputs one request gave them.
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
      (benchmarks/kb_10m.py --n 1000000 with the device store): K5, K6 (int8,
      bf16, fp32) and K8 against their plain versions at small shapes;
@@ -58,9 +61,10 @@ non-zero before the result line):
      launch count reset just before each and read just after, with
      exact_dense recall 1.0 and ivf_latency recall@10 >= 0.95; one hybrid
      step's K2' call replayed bit for bit; hybrid_step at the driver's
-     example shapes on the card against the CPU; K7 timed beside K1 and
-     torch.topk on the dense inputs of hybrid (512 x 100k), graph (256 x
-     1M) and phase 7's 1M request (512 x 1M).
+     example shapes on the card against the CPU; K7 timed beside both K1
+     bodies and torch.topk on the dense inputs of hybrid (512 x 100k),
+     graph (256 x 1M), ivf_latency (8 x 2.1M) and phase 7's 1M request
+     (512 x 1M).
 
 The second-to-last stdout line is the kernel table as JSON, one row per
 kernel: launches over the 1M phases' requests (K1-K4 phase 7, K5, K6, K8
@@ -161,26 +165,65 @@ def unit_rows(rng, n: int, d: int) -> np.ndarray:
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
+# K1's TMA + wgmma body at every edge it has: b in {1, 8, 130, 512}
+# (one to five query tiles), n_valid < N and not a multiple of 128, D in
+# {64, 72, 1024} (72: TMA's zero fill past D), k in {8, 31, 40, 64, 200,
+# 600} (31: the largest lists that fit in shared memory beside the ring
+# and the score tile; from 32 on they live in device memory).
+SM90_SHAPES = [(1, 1000, 1000, 1024, 8), (8, 5000, 4777, 72, 8),
+               (130, 3000, 2900, 64, 8), (512, 20_480, 20_000, DIM, 8),
+               (130, 9000, 8999, DIM, 31), (8, 40_000, 39_999, DIM, 40),
+               (130, 2500, 2397, DIM, 64), (130, 2500, 2397, DIM, 200),
+               (8, 1000, 999, 64, 600), (512, 8192, 8000, 72, 600)]
+
+
 def check_dense(b: int, n_rows: int, n_valid: int, d: int, k: int,
-                dtype=torch.bfloat16, seed: int = 0, timed: bool = False):
-    """K1 against its plain version on the card. Returns (max_abs_err,
-    kernel ms, plain ms) (times None unless timed)."""
-    from tpurag_torch.kernels.dense import dense_topk, dense_topk_ref
+                dtype=torch.bfloat16, seed: int = 0, runs: int = 1,
+                first_body: bool = False, timed: bool = False):
+    """K1 (as routed, or its first body) against its plain version on the
+    card, `runs` times on the same inputs (a stage of the TMA ring reused
+    too early shows now and then, not always). Returns (max_abs_err,
+    dense_times(...) or None unless timed)."""
+    from tpurag_torch.kernels.dense import (_dense_topk_first_body,
+                                            dense_topk, dense_topk_ref)
 
     rng = np.random.default_rng(seed)
     emb = torch.zeros((n_rows, d), dtype=dtype, device="cuda")
     emb[:n_valid] = torch.from_numpy(unit_rows(rng, n_valid, d)).cuda().to(dtype)
     q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
-    v_k, i_k = dense_topk(q, emb, n_valid, k)
     v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
-    torch.cuda.synchronize()
-    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
-    assert torch.isfinite(v_k).all()
-    err = topk_agree(v_k, i_k, v_r, i_r)
-    if not timed:
-        return err, None, None
-    return (err, cuda_ms(lambda: dense_topk(q, emb, n_valid, k)),
-            cuda_ms(lambda: dense_topk_ref(q, emb, n_valid, k)))
+    fn = _dense_topk_first_body if first_body else dense_topk
+    err = 0.0
+    for _ in range(runs):
+        v_k, i_k = fn(q, emb, n_valid, k)
+        torch.cuda.synchronize()
+        assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+        assert torch.isfinite(v_k).all()
+        err = max(err, topk_agree(v_k, i_k, v_r, i_r))
+    del v_r, i_r
+    return err, dense_times(q, emb, n_valid, k) if timed else None
+
+
+def dense_times(q, emb, n_valid: int, k: int) -> dict:
+    """Median ms on the same inputs of K1 as routed ("ms") and of K1's
+    first body ("first_ms"), timed in turns (routed, first, first,
+    routed; each the mean of its two), of the plain version and of
+    torch.topk(q @ emb.T, k) in the corpus dtype ("lib_ms")."""
+    from tpurag_torch.kernels.dense import (_dense_topk_first_body,
+                                            dense_topk, dense_topk_ref)
+
+    def routed():
+        return cuda_ms(lambda: dense_topk(q, emb, n_valid, k))
+
+    def first():
+        return cuda_ms(lambda: _dense_topk_first_body(q, emb, n_valid, k))
+
+    a, b, c, d = routed(), first(), first(), routed()
+    live = emb[:n_valid]
+    qb = q.to(emb.dtype)
+    return {"ms": (a + d) / 2, "first_ms": (b + c) / 2,
+            "plain_ms": cuda_ms(lambda: dense_topk_ref(q, emb, n_valid, k)),
+            "lib_ms": cuda_ms(lambda: torch.topk(qb @ live.T, k))}
 
 
 def merge_rows(rng, b: int, t: int, p: int, n_docs: int, flip: bool = True):
@@ -563,8 +606,8 @@ def drive_slice(device: str, kernels=()) -> dict:
     kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
     sync()
 
-    for fn in kernels:
-        launch_counts[fn.__name__] = 0
+    for name in count_names(kernels):
+        launch_counts[name] = 0
     lat, answers = [], []
     for queries, qv, _ in batches[1:]:
         t0 = time.perf_counter()
@@ -572,7 +615,7 @@ def drive_slice(device: str, kernels=()) -> dict:
         lat.append((time.perf_counter() - t0) * 1e3)
     singles = [kb.search(" ".join(f"w{t}" for t in rng.integers(0, 500, 3)))
                for _ in range(3)]
-    launches = {fn.__name__: launch_counts[fn.__name__] for fn in kernels}
+    launches = {n: launch_counts[n] for n in count_names(kernels)}
     log(f"[kb] 4 x search_batch(b={BATCH}, hybrid) + 3 x search: "
         f"launches {launches}")
 
@@ -601,6 +644,14 @@ def drive_slice(device: str, kernels=()) -> dict:
     shutil.rmtree(save_dir, ignore_errors=True)
     log("[kb] save -> load(device='cpu'): 64 queries give the same top-8")
     return {"launches": launches, "lat_ms": lat, "ingest_s": ingest_s}
+
+
+def count_names(kernels) -> list:
+    """The launch counts a drive resets and reads: each kernel wrapper's,
+    and beside dense_topk's (every K1 launch) dense_topk_sm90's (those
+    that took the TMA + wgmma body)."""
+    names = [fn.__name__ for fn in kernels]
+    return names + ["dense_topk_sm90"] * ("dense_topk" in names)
 
 
 def recording(module, name: str, calls: list):
@@ -636,38 +687,39 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 def replay_dense(calls) -> dict:
-    """K1 and K7 on the main path's own inputs (one request's K1 calls):
-    each held to dense_topk_ref by topk_agree, with the summed times of
-    K1, K7, the plain version and torch.topk(q @ emb.T) in bf16 (one
-    function, so one bound)."""
-    from tpurag_torch.kernels.dense import (dense_topk, dense_topk_co,
+    """K1 (as routed, and its first body) and K7 on the main path's own
+    inputs (one request's K1 calls): each held to dense_topk_ref by
+    topk_agree, with the summed times of both K1 bodies, K7, the plain
+    version and torch.topk(q @ emb.T) in bf16 (one function, so one
+    bound)."""
+    from tpurag_torch.kernels.dense import (_dense_topk_first_body,
+                                            dense_topk, dense_topk_co,
                                             dense_topk_ref)
 
-    err = co_err = ms = co_ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    err = co_err = first_err = nbytes = ops = co_ms = 0.0
+    times = dict.fromkeys(("ms", "first_ms", "plain_ms", "lib_ms"), 0.0)
     shapes = []
     for (q, emb, n_valid, k), _ in calls:
         v_k, i_k = dense_topk(q, emb, n_valid, k)
+        v_f, i_f = _dense_topk_first_body(q, emb, n_valid, k)
         v_c, i_c = dense_topk_co(q, emb, n_valid, k)
         v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
         torch.cuda.synchronize()
-        assert torch.isfinite(v_k).all() and torch.isfinite(v_c).all()
+        assert all(torch.isfinite(v).all() for v in (v_k, v_f, v_c))
         err = max(err, topk_agree(v_k, i_k, v_r, i_r))
+        first_err = max(first_err, topk_agree(v_f, i_f, v_r, i_r))
         co_err = max(co_err, topk_agree(v_c, i_c, v_r, i_r))
         del v_r, i_r
-        ms += cuda_ms(lambda: dense_topk(q, emb, n_valid, k))
+        for key, t in dense_times(q, emb, n_valid, k).items():
+            times[key] += t
         co_ms += cuda_ms(lambda: dense_topk_co(q, emb, n_valid, k))
-        plain_ms += cuda_ms(lambda: dense_topk_ref(q, emb, n_valid, k))
-        live = emb[:n_valid]
-        qb = q.to(emb.dtype)
-        lib_ms += cuda_ms(lambda: torch.topk(qb @ live.T, k))
-        del live, qb
         b, d = q.shape
         nbytes += (b * d * q.element_size() + n_valid * d * emb.element_size()
                    + b * k * 8)
         ops += 2 * b * n_valid * d
         shapes.append(f"{b}x{n_valid}x{d} k={k}")
-    return {"err": err, "co_err": co_err, "ms": ms, "co_ms": co_ms,
-            "plain_ms": plain_ms, "lib_ms": lib_ms, "shapes": shapes,
+    return {"err": err, "first_err": first_err, "co_err": co_err,
+            "co_ms": co_ms, **times, "shapes": shapes,
             "bound": bound_ms(nbytes, ops, BF16_FLOPS_S)}
 
 
@@ -845,14 +897,14 @@ def drive_wide(device: str, kernels=()) -> dict:
     log(f"[wide] warm-up request (compaction included): "
         f"{time.perf_counter() - t0:.2f}s")
 
-    for fn in kernels:
-        launch_counts[fn.__name__] = 0
+    for name in count_names(kernels):
+        launch_counts[name] = 0
     lat, answers = [], []
     for queries, qv, _ in batches[1:]:
         t0 = time.perf_counter()
         answers.append(kb.search_batch(queries, mode="hybrid", vectors=qv))
         lat.append((time.perf_counter() - t0) * 1e3)
-    launches = {fn.__name__: launch_counts[fn.__name__] for fn in kernels}
+    launches = {n: launch_counts[n] for n in count_names(kernels)}
     log(f"[wide] 4 x search_batch(b={BATCH_WIDE}, hybrid), hard (wide-term) "
         f"queries {hard[1:]} of {BATCH_WIDE}: launches {launches}")
 
@@ -992,8 +1044,8 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
         kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid", vectors=qv)
     sync()
 
-    for fn in kernels:
-        launch_counts[fn.__name__] = 0
+    for name in count_names(kernels):
+        launch_counts[name] = 0
     lat: dict[str, list] = {}
     answers = []
     for name, mode, b in (("hybrid_ivf b=32", "hybrid_ivf", B_IVF),
@@ -1006,7 +1058,7 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
                                   vectors=qv[:b])
             lat[name].append((time.perf_counter() - t0) * 1e3)
             answers.append(res)
-    launches = {fn.__name__: launch_counts[fn.__name__] for fn in kernels}
+    launches = {n: launch_counts[n] for n in count_names(kernels)}
     for res in answers:
         for r in res:
             ids = [x.chunk_id for x in r.results]
@@ -1053,14 +1105,16 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
     assert kb._ivf_built_at == N_IVF and kb._ivf_refresh_thread is None
     q_tail = qv.copy()
     q_tail[0] = tail[123] / np.linalg.norm(tail[123])
-    launch_counts["dense_topk"] = 0
+    launch_counts["dense_topk"] = launch_counts["dense_topk_sm90"] = 0
     res = kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid_ivf",
                           vectors=q_tail)
     tail_launches = launch_counts["dense_topk"]
     assert tail_launches >= 1 or device != "cuda", "the tail missed K1"
     assert N_IVF + 123 in [x.chunk_id for x in res[0].results]
     log(f"[ivf] 1000 chunks after the build (tail): one hybrid_ivf request "
-        f"launched K1 {tail_launches} time(s) and found a tail row ({card})")
+        f"launched K1 {tail_launches} time(s) ("
+        f"{launch_counts['dense_topk_sm90']} through the TMA + wgmma body) "
+        f"and found a tail row ({card})")
 
     profile = device_profile(lambda: kb.search_batch(
         qtexts, top_k=K_IVF, mode="hybrid_ivf", vectors=qv)) \
@@ -1235,9 +1289,11 @@ def q8_standalone(kb, card: str) -> dict:
 
 # Each port kernel's device functions (K3's rows up to one block's shared
 # memory and K2' run K2's body: merge_segsum_kernel<PACKED, FULL,
-# GATHER>). dense_merge_kernel serves K1, K5 and K7 alike; the profiled
-# requests run only K1 of them.
+# GATHER>; K1 has two bodies, dense_scan_sm90_kernel and
+# dense_scan_kernel). dense_merge_kernel serves K1, K5 and K7 alike; the
+# profiled requests run only K1 of them.
 PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
+                "dense_scan_sm90_kernel": "K1",
                 "row_max_kernel": "K3", "tile_merge_kernel": "K3",
                 "global_stage_kernel": "K3", "full_segsum_kernel": "K3",
                 "combine_topk_kernel": "K4", "ivf_scan_kernel": "K6",
@@ -1260,8 +1316,9 @@ def port_kernel(name: str):
 def device_profile(fn) -> dict:
     """One call of fn under torch.profiler: wall ms (ending in a
     synchronize), device-busy ms (the sum of the card's kernel and copy
-    times), the busiest device functions (template arguments kept) and
-    each port kernel's device ms."""
+    times), the number of those device operations, the busiest device
+    functions (template arguments kept) and each port kernel's device
+    ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1272,8 +1329,10 @@ def device_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
+    ops = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            ops += 1
             # A kernel's own name and template arguments, without its
             # namespace, return type and parameter list.
             m = re.search(r"(\w+_kernel(?:<[^<>()]*(?:\(bool\)[^<>()]*)*>)?)",
@@ -1287,16 +1346,61 @@ def device_profile(fn) -> dict:
     for name, ms in by_name.items():
         if (kern := port_kernel(name)) is not None:
             port[kern] = port.get(kern, 0.0) + ms
-    return {"wall_ms": wall_ms, "busy_ms": busy, "top": top,
+    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": ops, "top": top,
             "port": dict(sorted(port.items()))}
 
 
-def dense_library_ms(b: int, n_valid: int, d: int, k: int) -> float:
-    """One PyTorch call computing K1's function: topk of the bf16 product."""
-    rng = np.random.default_rng(0)
-    emb = torch.from_numpy(unit_rows(rng, n_valid, d)).cuda().bfloat16()
-    q = torch.from_numpy(unit_rows(rng, b, d)).cuda().bfloat16()
-    return cuda_ms(lambda: torch.topk(q @ emb.T, k))
+def hybrid_chain_profile(bench_mod, iters: int = 10, reps: int = 4) -> dict:
+    """Eval `hybrid`'s timed chain (`iters` steps back to back, one sync,
+    as bench._chain_time runs it), per step: the chain's device span
+    (CUDA events; the run with the smallest, of `reps`) and the host's
+    time to enqueue that run; under the profiler, device-busy ms, device
+    operations and each port kernel's ms; and the span of the same chain
+    replayed as a CUDA graph, with no host work between its launches
+    (None if the chain cannot be captured)."""
+    x = bench_mod.hybrid_inputs(device="cuda")
+    step = bench_mod.hybrid_chain_step(x)
+
+    def chain():
+        acc = torch.zeros((), dtype=torch.float32, device="cuda")
+        for i in range(iters):
+            acc = acc + step(i)
+        return acc
+
+    def span_ms(fn) -> tuple[float, float]:
+        """(device span, host enqueue) ms per step of one run of fn."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        return start.elapsed_time(end) / iters, host / iters
+
+    span_ms(chain)  # warm-up
+    span, enqueue = min(span_ms(chain) for _ in range(reps))
+    prof = device_profile(chain)
+    graph_ms = None
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chain()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            chain()
+        span_ms(graph.replay)  # warm-up
+        graph_ms = min(span_ms(graph.replay)[0] for _ in range(reps))
+    except RuntimeError as e:
+        log(f"[eval] hybrid chain: CUDA graph capture failed ({e})")
+    return {"span_ms": span, "enqueue_ms": enqueue,
+            "busy_ms": prof["busy_ms"] / iters, "ops": prof["ops"] / iters,
+            "port": {n: ms / iters for n, ms in prof["port"].items()},
+            "graph_ms": graph_ms}
 
 
 def main() -> int:
@@ -1330,23 +1434,46 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f}s "
         f"(nvcc {runtime.build_info['seconds']:.1f}s) "
         f"{runtime.build_info['path']}")
+    func, sm90_spill_lines = "", 0
     for line in runtime.build_info["log"].splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line):
+            func = m.group(1)
         if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+            log(f"[build] {func}: {line.strip()}")
+        if "spill" in line and "dense_scan_sm90_kernel" in func:
+            sm90_spill_lines += 1
+            assert re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                             line), f"K1's wgmma body spills: {line}"
+    # No ptxas report for the kernel means the log or its format changed,
+    # and the check above saw nothing.
+    assert sm90_spill_lines >= 1, (
+        f"{sm90_spill_lines} ptxas spill lines for dense_scan_sm90_kernel")
 
     # -- 3. K1 against its plain version --------------------------------------
-    err1, k1_ms, k1_plain_ms = check_dense(BATCH, 131_072, N_DOCS, DIM, 8,
-                                           timed=True)
-    k1_lib_ms = dense_library_ms(BATCH, N_DOCS, DIM, 8)
+    launch_counts["dense_topk_sm90"] = 0
+    err1, t3 = check_dense(BATCH, 131_072, N_DOCS, DIM, 8, runs=2,
+                           timed=True)
+    assert launch_counts["dense_topk_sm90"] >= 2, "K1 missed its wgmma body"
     log(f"[K1] b={BATCH} n_valid={N_DOCS}/131072 d={DIM} bf16 k=8: "
-        f"max|dscore|={err1:.3e} kernel {k1_ms:.3f} ms, plain "
-        f"{k1_plain_ms:.3f} ms, torch.topk(q @ emb.T) {k1_lib_ms:.3f} ms "
-        f"({card})")
-    err200, _, _ = check_dense(256, 20_480, 20_000, DIM, 200, seed=1)
-    errf32, _, _ = check_dense(64, 4096, 4000, 256, 40, torch.float32, seed=2)
-    log(f"[K1] k=200 (b=256, n=20000): max|dscore|={err200:.3e}; "
-        f"fp32 k=40: max|dscore|={errf32:.3e}")
-    err1 = max(err1, err200, errf32)
+        f"max|dscore|={err1:.3e}; TMA + wgmma body {t3['ms']:.3f} ms, first "
+        f"body {t3['first_ms']:.3f} ms, plain {t3['plain_ms']:.3f} ms, "
+        f"torch.topk(q @ emb.T) {t3['lib_ms']:.3f} ms ({card})")
+    for i, args in enumerate(SM90_SHAPES):
+        before = launch_counts["dense_topk_sm90"]
+        err1 = max(err1, check_dense(*args, seed=10 + i, runs=2)[0])
+        assert launch_counts["dense_topk_sm90"] == before + 2, args
+    err200, _ = check_dense(256, 20_480, 20_000, DIM, 200, seed=1,
+                            first_body=True)
+    errf32, _ = check_dense(64, 4096, 4000, 256, 40, torch.float32, seed=2)
+    before = launch_counts["dense_topk_sm90"]
+    err36, _ = check_dense(5, 300, 250, 36, 8, seed=3)  # unaligned D
+    assert launch_counts["dense_topk_sm90"] == before, "D=36 took TMA"
+    log(f"[K1] TMA + wgmma body, {len(SM90_SHAPES)} shapes x 2 runs (b in "
+        f"{{1, 8, 130, 512}}, D in {{64, 72, 1024}}, k in {{8, 31, 40, 64, "
+        f"200, 600}}, n_valid < N): max|dscore|={err1:.3e}; first body: bf16 "
+        f"k=200 {err200:.3e}, fp32 k=40 {errf32:.3e}, bf16 D=36 {err36:.3e}")
+    err1 = max(err1, err200, errf32, err36)
 
     # -- 4. K2 against its plain version --------------------------------------
     err2 = 0.0
@@ -1411,17 +1538,20 @@ def main() -> int:
     launches = wide["launches"]
     for name, n in launches.items():
         assert n > 0, f"{name} was not launched on the wide path"
+    assert launches["dense_topk_sm90"] == launches["dense_topk"], (
+        "a 1M request's K1 launch missed the TMA + wgmma body")
     calls = wide["calls"]
     k1 = replay_dense(calls["dense_topk"])
     k2 = replay_merge(calls["merge_segsum_topk"])
     k3 = replay_full(calls["merge_segsum_full"])
     k4 = replay_combine(calls["combine_topk"])
     del calls, wide["calls"]
-    err1 = max(err1, k1["err"])
+    err1 = max(err1, k1["err"], k1["first_err"])
     wide_p50 = statistics.median(wide["lat_ms"])
     log(f"[K1] one request's {len(k1['shapes'])} launch on the 1M path "
         f"({', '.join(k1['shapes'])}) against dense_topk_ref: max|dscore|="
-        f"{k1['err']:.3e}; kernel {k1['ms']:.3f} ms, plain "
+        f"{k1['err']:.3e} (first body {k1['first_err']:.3e}); TMA + wgmma "
+        f"body {k1['ms']:.3f} ms, first body {k1['first_ms']:.3f} ms, plain "
         f"{k1['plain_ms']:.3f} ms, torch.topk(q @ emb.T) {k1['lib_ms']:.3f} "
         f"ms, bound {k1['bound'][0]:.4f} ms ({k1['bound'][1]}) ({card})")
     log(f"[K2] one request's {len(k2['shapes'])} launches on the 1M path "
@@ -1562,8 +1692,8 @@ def main() -> int:
     results, eval_launches = {}, {}
     for name in ("exact_dense", "hybrid", "memory_fusion", "graph",
                  "ivf_latency"):
-        for fn in eval_kernels:
-            launch_counts[fn.__name__] = 0
+        for kern in count_names(eval_kernels):
+            launch_counts[kern] = 0
         with contextlib.ExitStack() as stack:
             if name in ("hybrid", "graph", "ivf_latency"):
                 stack.enter_context(recording(bench_mod, "dense_topk",
@@ -1576,9 +1706,9 @@ def main() -> int:
                                               eval_calls["ivf_probe"]))
             t0 = time.perf_counter()
             results[name] = bench_mod.run_all([name], device="cuda")[0]
-        eval_launches[name] = {fn.__name__: launch_counts[fn.__name__]
-                               for fn in eval_kernels
-                               if launch_counts[fn.__name__]}
+        eval_launches[name] = {kern: launch_counts[kern]
+                               for kern in count_names(eval_kernels)
+                               if launch_counts[kern]}
         log(f"[eval] {json.dumps(results[name])} launches "
             f"{eval_launches[name]} ({time.perf_counter() - t0:.1f}s) "
             f"({card})")
@@ -1587,8 +1717,10 @@ def main() -> int:
     assert results["exact_dense"]["value"] == 1.0, results["exact_dense"]
     assert results["ivf_latency"]["recall_at_10"] >= 0.95, results[
         "ivf_latency"]
-    for name, kern in (("hybrid", "bm25_topk_fused"), ("hybrid", "dense_topk"),
-                       ("graph", "dense_topk"), ("ivf_latency", "dense_topk"),
+    for name, kern in (("hybrid", "bm25_topk_fused"),
+                       ("hybrid", "dense_topk_sm90"),
+                       ("graph", "dense_topk_sm90"),
+                       ("ivf_latency", "dense_topk_sm90"),
                        ("ivf_latency", "ivf_probe_topk")):
         assert eval_launches[name].get(kern, 0) > 0, (
             f"{kern} was not launched in the eval config {name}")
@@ -1636,21 +1768,37 @@ def main() -> int:
           "ivf_latency": replay_dense([ivf_dense[0], ivf_dense[-1]])}
     del eval_calls, ivf_dense
     for name, r in k7.items():
-        err1 = max(err1, r["err"])
+        err1 = max(err1, r["err"], r["first_err"])
         err7 = max(err7, r["co_err"])
         log(f"[K7] {name} ({', '.join(r['shapes'])}): max|dscore|="
-            f"{r['co_err']:.3e} (K1 {r['err']:.3e}) against the plain "
-            f"version; K7 {r['co_ms']:.3f} ms, K1 {r['ms']:.3f} ms, "
-            f"torch.topk(q @ emb.T) {r['lib_ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}) ({card})")
+            f"{r['co_err']:.3e} (K1 {r['err']:.3e}, K1's first body "
+            f"{r['first_err']:.3e}) against the plain version; K7 "
+            f"{r['co_ms']:.3f} ms, K1 {r['ms']:.3f} ms, K1's first body "
+            f"{r['first_ms']:.3f} ms, torch.topk(q @ emb.T) "
+            f"{r['lib_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9f. Where eval `hybrid`'s step time goes: the device's share of the
+    # chain, and whether the host's enqueue rate sets it.
+    hp = hybrid_chain_profile(bench_mod)
+    graph_txt = ("not measured" if hp["graph_ms"] is None
+                 else f"{hp['graph_ms']:.3f} ms")
+    log(f"[eval] hybrid chain per step (512 x 100k): device span "
+        f"{hp['span_ms']:.3f} ms (CUDA events), host enqueue "
+        f"{hp['enqueue_ms']:.3f} ms, device busy {hp['busy_ms']:.3f} ms in "
+        f"{hp['ops']:.1f} device operations (idle share "
+        f"{1 - hp['busy_ms'] / hp['span_ms']:.3f}); by port kernel "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in hp["port"].items())
+        + f" ms; the chain as a CUDA graph {graph_txt} per step ({card})")
     gc.collect()
     torch.cuda.empty_cache()
 
     log(f"[total] {time.perf_counter() - t_start:.1f}s ({card})")
     log(json.dumps({"kernels": [
         {"name": "dense_topk", "route": "cuda",
-         "source": "tpurag_torch/csrc/dense_topk.cu",
+         "source": "tpurag_torch/csrc/dense_topk_sm90.cu",
          "replaces": "tpurag/kernels/dense.py:319",
          "launches": launches["dense_topk"], "max_abs_err": err1,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],

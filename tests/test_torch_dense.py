@@ -130,3 +130,55 @@ def test_dense_index_options_not_ported_raise():
         with pytest.raises(NotImplementedError):
             DenseIndex(16, device="cpu", **kw)
     assert DenseIndex(16, device="cpu", quant=True).quant  # ported
+
+
+@pytest.mark.parametrize("b,n_valid,k", [
+    (1024, 100_000, 8), (512, 1_000_000, 8), (256, 1_000_000, 16),
+    (8, 2_100_000, 40), (1, 1000, 600), (130, 2900, 8), (512, 20_000, 600),
+    (5, 0, 8), (20_000, 1_000_000, 8), (3, 300, 9000)])
+def test_sm90_splits_fill_one_wave(b, n_valid, k):
+    from tpurag_torch.kernels.dense import (H100_SMS, MAX_MERGE_CANDIDATES,
+                                            SM90_TILE, sm90_splits)
+    from tpurag_torch.kernels.runtime import cdiv
+
+    s = sm90_splits(b, n_valid, k)
+    q_tiles = cdiv(b, SM90_TILE)
+    n_tiles = max(cdiv(n_valid, SM90_TILE), 1)
+    assert s >= 1
+    assert q_tiles * s <= max(H100_SMS, q_tiles)  # one wave at one per SM
+    assert s * k <= max(MAX_MERGE_CANDIDATES, k)
+    per = cdiv(n_tiles, s)  # the kernel's tiles per split
+    assert (s - 1) * per < n_tiles  # every split holds a tile
+    # 1024 x 100k: 8 query tiles x 16 splits, not 17 (136 blocks > 132).
+    if (b, n_valid) == (1024, 100_000):
+        assert s == 16
+    if (b, n_valid, k) == (512, 1_000_000, 8):
+        assert q_tiles * s == 132
+
+
+def test_sm90_route():
+    from tpurag_torch.kernels.dense import sm90_route
+
+    assert sm90_route(torch.bfloat16, 1024, 0, 4096)
+    assert sm90_route(torch.bfloat16, 72, 16, 32)
+    assert not sm90_route(torch.bfloat16, 36, 0, 0)     # rows of 72 bytes
+    assert not sm90_route(torch.bfloat16, 1024, 8, 0)   # unaligned pointer
+    assert not sm90_route(torch.float32, 1024, 0, 0)
+    assert not sm90_route(torch.int8, 1024, 0, 0)
+
+
+@pytest.mark.parametrize("probe", ["full", "no_mma", "no_tma", "no_fold",
+                                   "mma_only"])
+def test_k1_anatomy_patches_apply(probe):
+    """tools/k1_anatomy.py cuts parts out of K1's wgmma body by textual
+    patches; each anchor must be in the kernel's source exactly once."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k1_anatomy.py"
+    spec = importlib.util.spec_from_file_location("k1_anatomy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.patched(tool.PROBES[probe])
+    assert "dense_scan_sm90_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")

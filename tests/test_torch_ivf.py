@@ -433,7 +433,10 @@ def test_kb_ivf_auto_refresh_on_sustained_ingest():
     for i in range(40, 80):
         kb.add_document(f"doc{i}", f"later document {i} about "
                         f"{['gears', 'levers'][i % 2]} " * 4)
-    kb.wait_ivf_refresh()
+    kb.wait_ivf_refresh(timeout=None)
+    assert not kb._ivf_refresh_thread.is_alive()
     assert kb._ivf_built_at > built0, "background rebuild never swapped in"
+    assert kb.dense.n_active - kb._ivf_built_at \
+        < max(8, 0.25 * kb._ivf_built_at) + 40  # tail bounded again
     r = kb.search("later document about gears", mode="ivf", top_k=3)
     assert r.results and any("gears" in x.text for x in r.results)

@@ -1,4 +1,7 @@
-// K1: fused dense cosine top-k for Hopper (sm_90a), and K5, its int8 form.
+// K1's first body: fused dense cosine top-k for Hopper (sm_90a), and K5,
+// its int8 form. Aligned bf16 corpora take K1's TMA + wgmma body
+// (dense_topk_sm90.cu); this one serves fp32, bf16 rows that TMA cannot
+// address (D % 8 != 0 or unaligned pointers), and K5.
 //
 // K1 replaces the Pallas kernel tpurag/kernels/dense.py:dense_topk_pallas
 // (body _dense_topk_kernel). Same contract: (B, k) float32 scores
@@ -38,8 +41,8 @@
 //   only if it beats the list's k-th entry; the warp then inserts the best
 //   candidate and re-checks against the new k-th, so once the lists are
 //   warm almost every tile costs one compare per score. Any k works.
-// - Later work: TMA + wgmma with a ring of tiles, and an early skip of a
-//   tile whose maximum cannot enter any list.
+//   The fold and the merge launcher are shared with the wgmma body
+//   (dense_topk.cuh).
 //
 // K7 replaces tpurag/kernels/dense.py:dense_topk_pallas_co (body
 // _dense_topk_kernel_co): K1's contract with the corpus loop outside the
@@ -59,7 +62,7 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
-#include "topk.cuh"
+#include "dense_topk.cuh"
 
 namespace {
 
@@ -69,7 +72,6 @@ constexpr int TD = 64;        // D slice staged in shared memory
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int LDS = TN + 4;   // score tile row stride (floats)
-constexpr int BIG_ID = 1 << 30;
 constexpr int MAX_SMEM = 232448;  // 227 KB: Hopper's per-block limit
 constexpr int MERGE_THREADS = 128;
 
@@ -317,49 +319,14 @@ __global__ void __launch_bounds__(THREADS)
   };
 
   for (int r = warp; r < TQ && q0 + r < B; r += WARPS)
-    tr::warp_list_init(list_v(r), list_i(r), k, BIG_ID);
+    tr::warp_list_init(list_v(r), list_i(r), k, tr::kDenseBigId);
 
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * TN;
     score_tile(q, emb, e_scale, B, N, D, q0, n0, vec, qs, es, sc);
-    for (int r = warp; r < TQ && q0 + r < B; r += WARPS) {
-      float* lv = list_v(r);
-      int* li = list_i(r);
-      float kv = lv[k - 1];
-      int ki = li[k - 1];
-      float v[TN / 32];
-      int id[TN / 32];
-      bool cand[TN / 32];
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < TN / 32; ++j) {
-        id[j] = n0 + lane + 32 * j;
-        v[j] = sc[r * LDS + lane + 32 * j];
-        cand[j] = id[j] < n_valid && tr::lex_gt(v[j], id[j], kv, ki);
-        any |= cand[j];
-      }
-      while (__any_sync(tr::kFullMask, any)) {
-        float bv = -INFINITY;
-        int bi = tr::kIntMax;
-#pragma unroll
-        for (int j = 0; j < TN / 32; ++j)
-          if (cand[j] && tr::lex_gt(v[j], id[j], bv, bi)) {
-            bv = v[j];
-            bi = id[j];
-          }
-        int unused = 0;
-        tr::warp_lex_max3(bv, bi, unused);
-        tr::warp_list_insert(lv, li, k, bv, bi);
-        kv = lv[k - 1];
-        ki = li[k - 1];
-        any = false;
-#pragma unroll
-        for (int j = 0; j < TN / 32; ++j) {
-          cand[j] = cand[j] && id[j] != bi && tr::lex_gt(v[j], id[j], kv, ki);
-          any |= cand[j];
-        }
-      }
-    }
+    for (int r = warp; r < TQ && q0 + r < B; r += WARPS)
+      tr::warp_fold_row<TN>(sc + r * LDS, n0, n_valid, k, list_v(r),
+                            list_i(r));
   }
 
   if (lists_in_smem) {
@@ -393,8 +360,8 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     ci[e] = part_i[row * m + e];
   }
   __syncthreads();
-  tr::block_topk(cv, ci, m, k, BIG_ID, -1, out_v + row * k, out_i + row * k,
-                 red_v, red_i, red_p);
+  tr::block_topk(cv, ci, m, k, tr::kDenseBigId, -1, out_v + row * k,
+                 out_i + row * k, red_v, red_i, red_p);
 }
 
 // -- K7: corpus-outer order ------------------------------------------------
@@ -547,7 +514,7 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int r = warp; r < B; r += WARPS)
     tr::warp_list_init(part_v + ((size_t)r * S + s) * k,
-                       part_i + ((size_t)r * S + s) * k, k, BIG_ID);
+                       part_i + ((size_t)r * S + s) * k, k, tr::kDenseBigId);
 
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * TNC;
@@ -660,8 +627,11 @@ cudaError_t launch_dense(const void* q, const void* emb, const float* e_scale,
   return cudaGetLastError();
 }
 
-cudaError_t launch_merge(const float* part_v, const int* part_i, int B, int S,
-                         int k, float* out_v, int* out_i, cudaStream_t st) {
+}  // namespace
+
+cudaError_t tr::dense_merge(const float* part_v, const int* part_i, int B,
+                            int S, int k, float* out_v, int* out_i,
+                            cudaStream_t st) {
   const size_t merge_smem = (size_t)S * k * (sizeof(float) + sizeof(int));
   cudaError_t err = cudaFuncSetAttribute(
       dense_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -671,8 +641,6 @@ cudaError_t launch_merge(const float* part_v, const int* part_i, int B, int S,
                                                            k, out_v, out_i);
   return cudaGetLastError();
 }
-
-}  // namespace
 
 extern "C" int tr_dense_topk(const void* q, const void* emb, int dtype, int B,
                              int N, int D, int n_valid, int k, int S,
@@ -687,7 +655,7 @@ extern "C" int tr_dense_topk(const void* q, const void* emb, int dtype, int B,
           : launch_dense<float>(q, emb, nullptr, B, N, D, n_valid, k, S,
                                 part_v, part_i, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
+  return (int)tr::dense_merge(part_v, part_i, B, S, k, out_v, out_i, st);
 }
 
 // K5: int8 codes q (B, D) and emb (N, D), fp32 row scales e_scale (N,).
@@ -701,7 +669,7 @@ extern "C" int tr_dense_topk_q8(const void* q, const void* emb,
   cudaError_t err = launch_dense<int8_t>(q, emb, e_scale, B, N, D, n_valid,
                                          k, S, part_v, part_i, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
+  return (int)tr::dense_merge(part_v, part_i, B, S, k, out_v, out_i, st);
 }
 
 // K7: K1's contract in corpus-outer order; corpus tiles of tn rows (64,
@@ -719,7 +687,7 @@ extern "C" int tr_dense_topk_co(const void* q, const void* emb, int dtype,
                  : launch_co<float>(q, emb, B, N, D, n_valid, k, tn, S,
                                     part_v, part_i, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_merge(part_v, part_i, B, S, k, out_v, out_i, st);
+  return (int)tr::dense_merge(part_v, part_i, B, S, k, out_v, out_i, st);
 }
 
 extern "C" const char* tr_error_string(int err) {

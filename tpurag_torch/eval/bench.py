@@ -177,12 +177,10 @@ def hybrid_step(q, emb, n_valid, starts, lens, idf, post_doc, post_impact,
     return s, i
 
 
-def config2_hybrid(seed: int = 0, n: Optional[int] = None,
-                   device="cuda") -> dict:
-    """Hybrid top-8 dense + BM25 + RRF (the JAX package's headline)."""
-    x = hybrid_inputs(seed, n, device)
-    b = x["q"].shape[0]
-
+def hybrid_chain_step(x: dict):
+    """Config 2's timed step on hybrid_inputs `x`: step(i) runs hybrid_step
+    on the queries scaled by 1 + i * 1e-7 and the query terms rolled by i,
+    and returns the fused scores' sum as a 0-d tensor."""
     def step(i):
         s, _ = hybrid_step(
             x["q"] * (1.0 + i * 1e-7), x["emb"], x["n_valid"],
@@ -192,7 +190,16 @@ def config2_hybrid(seed: int = 0, n: Optional[int] = None,
             cbits=x["cbits"])
         return s.sum()
 
-    sec = _chain_time(step, device, iters=10 if _on_card(device) else 3)
+    return step
+
+
+def config2_hybrid(seed: int = 0, n: Optional[int] = None,
+                   device="cuda") -> dict:
+    """Hybrid top-8 dense + BM25 + RRF (the JAX package's headline)."""
+    x = hybrid_inputs(seed, n, device)
+    b = x["q"].shape[0]
+    sec = _chain_time(hybrid_chain_step(x), device,
+                      iters=10 if _on_card(device) else 3)
     return {"metric": "hybrid_qps_per_chip", "value": b / sec, "unit": "QPS",
             "p50_ms": sec * 1e3, "n": x["n_valid"], "batch": b}
 

@@ -1,13 +1,16 @@
 # Ported from tpurag/kernels/dense.py (dense_topk_xla -> dense_topk_ref,
-# dense_topk_pallas and dense_topk_pallas_co -> the CUDA kernels in
-# csrc/dense_topk.cu).
+# dense_topk_pallas -> the CUDA kernels in csrc/dense_topk_sm90.cu and
+# csrc/dense_topk.cu, dense_topk_pallas_co -> csrc/dense_topk.cu).
 """Dense cosine-similarity top-k.
 
 Embeddings and queries are L2-normalized by the index layer, so the dot
 product is the cosine score. ``dense_topk`` is the dispatching wrapper:
-a CUDA corpus goes to the hand-written Hopper kernel (the (B, N) score
+a CUDA corpus goes to a hand-written Hopper kernel (the (B, N) score
 matrix is never written to device memory), a CPU corpus to
 ``dense_topk_ref``, the plain version (one matmul, then a stable sort).
+K1 has two bodies: bf16 corpora whose rows TMA can address
+(``sm90_route``) take the TMA + wgmma one (csrc/dense_topk_sm90.cu),
+every other corpus the first one (csrc/dense_topk.cu, WMMA).
 ``dense_topk_co`` computes the same function in corpus-outer order (K7:
 each corpus tile read once and scored against every query tile); no
 path calls it, it is measured beside ``dense_topk``.
@@ -22,6 +25,7 @@ accumulation.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +36,10 @@ from tpurag_torch.kernels.runtime import (NEG_INF, cdiv, check_launch,
 # Kernel tile sizes (csrc/dense_topk.cu: TQ queries x TN corpus rows).
 TILE_Q = 64
 TILE_N = 128
+# The TMA + wgmma body's tile (csrc/dense_topk_sm90.cu: 128 queries x 128
+# corpus rows, one block per SM) and the H100 SXM's SM count.
+SM90_TILE = 128
+H100_SMS = 132
 # Blocks the split heuristic aims for: two per SM on a 132-SM H100.
 TARGET_BLOCKS = 264
 # Candidates per query the merge pass holds in shared memory.
@@ -88,13 +96,54 @@ def _check_args(name: str, queries: torch.Tensor, emb: torch.Tensor,
                          f"for {n} rows")
 
 
+def sm90_route(dtype: torch.dtype, d: int, *ptrs: int) -> bool:
+    """Whether a corpus takes K1's TMA + wgmma body: bf16, rows of a
+    multiple of 16 bytes (D % 8 == 0) and 16-byte aligned data pointers
+    (what a TMA tensor map needs). Every other corpus takes the first
+    body."""
+    return (dtype == torch.bfloat16 and d % 8 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def sm90_splits(b: int, n_valid: int, k: int, sms: int = H100_SMS) -> int:
+    """Corpus splits of the TMA + wgmma body: (query tiles x splits)
+    blocks within one wave at one block per SM, at least one corpus tile
+    in every split, and few enough partial lists per query for the merge
+    pass."""
+    q_tiles = cdiv(max(b, 1), SM90_TILE)
+    n_tiles = max(cdiv(n_valid, SM90_TILE), 1)
+    s = max(1, min(sms // q_tiles, n_tiles, MAX_MERGE_CANDIDATES // k))
+    return cdiv(n_tiles, cdiv(n_tiles, s))  # no split left without a tile
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
                k: int):
     """Cosine top-k of (B, D) queries against the first n_valid rows of
     the (N, D) corpus. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (csrc/dense_topk.cu) or raise."""
+    launch K1 (csrc/dense_topk_sm90.cu where ``sm90_route`` allows it,
+    else csrc/dense_topk.cu) or raise."""
     if emb.device.type == "cpu":
         return dense_topk_ref(queries, emb, n_valid, k)
+    return _dense_topk_cuda(queries, emb, n_valid, k, sm90=None)
+
+
+def _dense_topk_first_body(queries: torch.Tensor, emb: torch.Tensor,
+                           n_valid: int, k: int):
+    """K1's first body (csrc/dense_topk.cu) on a CUDA corpus that the
+    route would send to the TMA + wgmma body: called by name only to time
+    the two bodies on the same inputs."""
+    return _dense_topk_cuda(queries, emb, n_valid, k, sm90=False)
+
+
+def _dense_topk_cuda(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
+                     k: int, sm90):
+    """Launch one of K1's bodies: sm90 None routes by ``sm90_route``,
+    False takes the first body."""
     if emb.device.type != "cuda":
         raise ValueError(f"dense_topk: unsupported device {emb.device}")
     n_valid = int(n_valid)
@@ -106,22 +155,30 @@ def dense_topk(queries: torch.Tensor, emb: torch.Tensor, n_valid: int,
     out_i = torch.empty((b, k), dtype=torch.int32, device=emb.device)
     if b == 0:
         return out_v, out_i
-    splits = dense_splits(b, n_valid, k)
+    if sm90 is None:
+        sm90 = sm90_route(emb.dtype, d, q.data_ptr(), emb.data_ptr())
+    lib = load_kernels()
+    if sm90:
+        splits = sm90_splits(b, n_valid, k, _sm_count(emb.device))
+        fn, head = lib.tr_dense_topk_sm90, ()
+    else:
+        splits = dense_splits(b, n_valid, k)
+        fn, head = lib.tr_dense_topk, (DTYPE_CODE[emb.dtype],)
     part_v = torch.empty((b, splits, k), dtype=torch.float32,
                          device=emb.device)
     part_i = torch.empty((b, splits, k), dtype=torch.int32, device=emb.device)
-    fn = load_kernels().tr_dense_topk
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    err = fn(q.data_ptr(), emb.data_ptr(), DTYPE_CODE[emb.dtype], b, n, d,
-             n_valid, k, splits, part_v.data_ptr(), part_i.data_ptr(),
-             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(emb.device))
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (6 + len(head))
+                   + [ctypes.c_void_p] * 5)
+    err = fn(q.data_ptr(), emb.data_ptr(), *head, b, n, d, n_valid, k,
+             splits, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+             out_i.data_ptr(), cuda_stream(emb.device))
     check_launch(err, "dense_topk")
+    # Every K1 launch counts under dense_topk; the TMA + wgmma body's also
+    # under dense_topk_sm90, so a run shows which body ran.
     launch_counts["dense_topk"] += 1
+    if sm90:
+        launch_counts["dense_topk_sm90"] += 1
     return out_v, out_i
 
 
