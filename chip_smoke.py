@@ -38,18 +38,20 @@ non-zero before the result line):
      (bit for bit) held to their plain versions and timed on the very
      inputs one request gave them.
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
-     (benchmarks/kb_10m.py --n 1000000 with the device store): K5, K6 (int8,
-     bf16, fp32) and K8 against their plain versions at small shapes;
-     KnowledgeBase(quant=True) ingests 1M x 1024 chunks of a 1024-center
-     mixture through add_chunks, build_ivf() packs 4096 int8 lists, then
-     4 search_batch requests each of hybrid_ivf at b=32 and b=8 and of
-     hybrid at b=32 with every counter reset just before; K5, K6 and K8
-     replayed bit for bit (K8 within 1e-5) on one request's own inputs;
-     K5 beside K1 and torch._int_mm at b=32 and b=512; K6's bf16 form on a
-     100k-row bf16 IVF; mode 'ivf' recall@10 >= 0.95 against the full
-     probe; the same partition on the CPU giving the same ids; 1000
-     chunks after the build scanned by K1 in the tail; one profiled
-     hybrid_ivf request.
+     (benchmarks/kb_10m.py --n 1000000 with the device store): K5's TMA +
+     int8 wgmma body at Q8_SHAPES (each twice) and its first body, K6
+     (int8, bf16, fp32) and K8 against their plain versions at small
+     shapes; KnowledgeBase(quant=True) ingests 1M x 1024 chunks of a
+     1024-center mixture through add_chunks, build_ivf() packs 4096 int8
+     lists, then 4 search_batch requests each of hybrid_ivf at b=32 and
+     b=8 and of hybrid at b=32 with every counter reset just before; every
+     K5 launch took the wgmma body; K5, K6 and K8 replayed bit for bit (K8
+     within 1e-5) on one request's own inputs; K5's two bodies beside K1
+     and torch._int_mm at b=32 and b=512; K6's bf16 form on a 100k-row
+     bf16 IVF; mode 'ivf' recall@10 >= 0.95 against the full probe; the
+     same partition on the CPU giving the same ids; 1000 chunks after the
+     build scanned by K1 in the tail; one profiled request each of
+     hybrid_ivf and hybrid (K5's path).
   9. the eval-suite slice (tpurag_torch/eval/bench.py, the JAX package's
      tpurag/eval/bench.py): K2' bm25_topk_fused against its plain
      version bit for bit at t in {1, 2, 4, 8} x p_max in {16, 64, 256,
@@ -407,12 +409,29 @@ def check_combine(g: int, wn: int, ww: int, k: int, n_docs: int = N_DOCS,
             cuda_ms(lambda: combine_narrow_wide(*args)))
 
 
+# K5 at every edge its two bodies have: b in {1, 8, 32} (the wgmma body's
+# 32-query tile, queries resident) and {33, 40, 512} (its 128-query tile),
+# n_valid < N and not a multiple of 128, D in {48, 1024, 4096} (48: TMA's
+# zero fill past D in a 128-code box; 4096: the most resident queries) and
+# 40 (the first body: rows of 40 bytes), k in {1, 20, 31, 32, 600} (lists
+# in shared memory up to 31 at the 128-query tile and up to 453 at the
+# 32-query one at D = 1024, else in device memory), and k > n_valid.
+Q8_SHAPES = [(1, 1000, 999, DIM, 1), (8, 5000, 4777, 48, 20),
+             (32, 20_480, 20_000, DIM, 20), (32, 9000, 8999, DIM, 31),
+             (32, 3000, 2900, DIM, 600), (33, 3000, 2900, DIM, 32),
+             (33, 9000, 8999, 48, 31), (512, 8192, 8000, DIM, 8),
+             (512, 8192, 8000, DIM, 600), (5, 300, 20, 48, 40),
+             (40, 300, 20, DIM, 32), (8, 3000, 2900, 4096, 20),
+             (5, 300, 20, 40, 40), (32, 2000, 1999, 40, 20)]
+
+
 def check_q8(b: int, n_rows: int, n_valid: int, d: int, k: int, seed: int = 0,
-             timed: bool = False):
-    """K5 against its plain version on the card: exact int dots and one
-    scale multiply, so values and ids must be bit-identical. Returns
-    (max_abs_err, kernel ms, plain ms)."""
-    from tpurag_torch.kernels.quant import (dense_scan_q8, dense_scan_q8_ref,
+             runs: int = 1, first_body: bool = False):
+    """K5 (as routed, or its first body) against its plain version on the
+    card, `runs` times on the same inputs: exact int dots and one scale
+    multiply, so values and ids must be bit-identical."""
+    from tpurag_torch.kernels.quant import (_dense_scan_q8_first_body,
+                                            dense_scan_q8, dense_scan_q8_ref,
                                             quantize_rows)
 
     rng = np.random.default_rng(seed)
@@ -421,16 +440,16 @@ def check_q8(b: int, n_rows: int, n_valid: int, d: int, k: int, seed: int = 0,
     e8, es = quantize_rows(emb)
     q8, qs = quantize_rows(torch.from_numpy(unit_rows(rng, b, d)).cuda())
     args = (q8, qs, e8, es, n_valid, k)
-    v_k, i_k = dense_scan_q8(*args)
     v_r, i_r = dense_scan_q8_ref(*args)
-    torch.cuda.synchronize()
-    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
-    assert torch.equal(i_k, i_r), f"K5 ids differ at b={b} n={n_valid} k={k}"
-    assert torch.equal(v_k, v_r), f"K5 values differ at b={b} n={n_valid} k={k}"
-    if not timed:
-        return 0.0, None, None
-    return (0.0, cuda_ms(lambda: dense_scan_q8(*args)),
-            cuda_ms(lambda: dense_scan_q8_ref(*args)))
+    fn = _dense_scan_q8_first_body if first_body else dense_scan_q8
+    for _ in range(runs):
+        v_k, i_k = fn(*args)
+        torch.cuda.synchronize()
+        assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+        assert torch.equal(i_k, i_r), (
+            f"K5 ids differ at b={b} n={n_valid} d={d} k={k}")
+        assert torch.equal(v_k, v_r), (
+            f"K5 values differ at b={b} n={n_valid} d={d} k={k}")
 
 
 def check_gather(b: int, m: int, n: int, d: int, dtype=torch.bfloat16,
@@ -648,10 +667,12 @@ def drive_slice(device: str, kernels=()) -> dict:
 
 def count_names(kernels) -> list:
     """The launch counts a drive resets and reads: each kernel wrapper's,
-    and beside dense_topk's (every K1 launch) dense_topk_sm90's (those
-    that took the TMA + wgmma body)."""
+    and beside dense_topk's (every K1 launch) and dense_scan_q8's (every
+    K5 launch) dense_topk_sm90's and dense_scan_q8_sm90's (those that took
+    the TMA + wgmma bodies)."""
     names = [fn.__name__ for fn in kernels]
-    return names + ["dense_topk_sm90"] * ("dense_topk" in names)
+    return names + [f"{n}_sm90" for n in ("dense_topk", "dense_scan_q8")
+                    if n in names]
 
 
 def recording(module, name: str, calls: list):
@@ -996,7 +1017,7 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
     kernel calls recorded for the replays. Then: recall@10 of mode 'ivf'
     against the full probe, the same IVF on the CPU (plain versions),
     1000 chunks added after the build (the tail goes through K1) and one
-    profiled hybrid_ivf request."""
+    profiled request each of hybrid_ivf and hybrid."""
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.config import EngineConfig
     from tpurag_torch.core.types import Chunk
@@ -1116,22 +1137,52 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
         f"{launch_counts['dense_topk_sm90']} through the TMA + wgmma body) "
         f"and found a tail row ({card})")
 
-    profile = device_profile(lambda: kb.search_batch(
-        qtexts, top_k=K_IVF, mode="hybrid_ivf", vectors=qv)) \
-        if device == "cuda" else None
+    profiles = {mode: device_profile(lambda: kb.search_batch(
+        qtexts, top_k=K_IVF, mode=mode, vectors=qv))
+        for mode in ("hybrid_ivf", "hybrid")} if device == "cuda" else None
     return {"launches": launches, "lat": lat, "ingest_s": ingest_s,
-            "build_s": build_s, "calls": calls, "profile": profile,
+            "build_s": build_s, "calls": calls, "profiles": profiles,
             "recall": recall, "nprobe": nprobe, "kb": kb, "qv": qv,
             "tail_launches": tail_launches}
 
 
+def q8_times(args) -> dict:
+    """Median ms on the same inputs of K5 as routed ("ms") and of K5's
+    first body ("first_ms"), timed in turns (routed, first, first, routed;
+    each the mean of its two), and of torch._int_mm(q8, e8.T) followed by
+    the row scale and topk ("lib_ms")."""
+    from tpurag_torch.kernels.quant import (_dense_scan_q8_first_body,
+                                            dense_scan_q8)
+
+    def routed():
+        return cuda_ms(lambda: dense_scan_q8(*args))
+
+    def first():
+        return cuda_ms(lambda: _dense_scan_q8_first_body(*args))
+
+    a, b, c, d = routed(), first(), first(), routed()
+    q8, _, e8, es, n_valid, k = args
+    live, scale = e8[:n_valid], es[:n_valid]
+    return {"ms": (a + d) / 2, "first_ms": (b + c) / 2,
+            "lib_ms": cuda_ms(lambda: torch.topk(
+                torch._int_mm(q8, live.T).float() * scale, k))}
+
+
+def q8_bound(b: int, n_valid: int, d: int, k: int):
+    """K5's bound: the codes, the row scales and the result moved once, or
+    the int8 operations, whichever takes longer."""
+    nbytes = b * d + n_valid * (d + 4) + b * 4 + b * k * 8
+    return nbytes, 2 * b * n_valid * d
+
+
 def replay_q8(calls) -> dict:
     """K5 on the main path's own inputs: bit-identical to its plain
-    version, and the summed times of the kernel, its plain version and
-    torch._int_mm(q8, e8.T) followed by the row scale and topk."""
+    version, and the summed times of the kernel, its first body, its plain
+    version and torch._int_mm(q8, e8.T) followed by the row scale and
+    topk."""
     from tpurag_torch.kernels.quant import dense_scan_q8, dense_scan_q8_ref
 
-    ms = plain_ms = lib_ms = nbytes = ops = 0.0
+    ms = first_ms = plain_ms = lib_ms = nbytes = ops = 0.0
     shapes = []
     for args, _ in calls:
         v_k, i_k = dense_scan_q8(*args)
@@ -1139,18 +1190,20 @@ def replay_q8(calls) -> dict:
         torch.cuda.synchronize()
         assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K5 replay"
         del v_r, i_r
-        ms += cuda_ms(lambda: dense_scan_q8(*args))
+        t = q8_times(args)
+        ms += t["ms"]
+        first_ms += t["first_ms"]
+        lib_ms += t["lib_ms"]
         plain_ms += cuda_ms(lambda: dense_scan_q8_ref(*args))
-        q8, _, e8, es, n_valid, k = args
-        live, scale = e8[:n_valid], es[:n_valid]
-        lib_ms += cuda_ms(lambda: torch.topk(
-            torch._int_mm(q8, live.T).float() * scale, k))
+        q8, _, _, _, n_valid, k = args
         b, d = q8.shape
-        nbytes += b * d + n_valid * (d + 4) + b * 4 + b * k * 8
-        ops += 2 * b * n_valid * d
+        nb, op = q8_bound(b, n_valid, d, k)
+        nbytes += nb
+        ops += op
         shapes.append(f"{b}x{n_valid}x{d} k={k}")
-    return {"ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms,
-            "shapes": shapes, "bound": bound_ms(nbytes, ops, INT8_OPS_S)}
+    return {"ms": ms, "first_ms": first_ms, "plain_ms": plain_ms,
+            "lib_ms": lib_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, ops, INT8_OPS_S)}
 
 
 def replay_ivf(calls) -> dict:
@@ -1258,11 +1311,12 @@ def check_ivf_bf16(kb, qv, card: str) -> dict:
 
 
 def q8_standalone(kb, card: str) -> dict:
-    """K5 beside K1 on the phase's 1M-row KB at 512 queries, k=8, and the
-    library call torch._int_mm(q8, e8.T) then the row scale and topk, at
-    b=32 (k=20, the rescore's overfetch) and b=512."""
+    """K5's two bodies (timed in turns), torch._int_mm(q8, e8.T) then the
+    row scale and topk, and K1 on the bf16 rows, on the phase's 1M-row KB
+    at b=32 (k=20, the rescore's overfetch: the 32-query tile) and b=512
+    (k=8: the 128-query tile)."""
     from tpurag_torch.kernels.dense import dense_topk
-    from tpurag_torch.kernels.quant import dense_scan_q8, quantize_rows
+    from tpurag_torch.kernels.quant import quantize_rows
 
     dense = kb.dense
     n = dense.n_active
@@ -1271,18 +1325,14 @@ def q8_standalone(kb, card: str) -> dict:
     for b, k in ((B_IVF, 2 * K_IVF), (512, 8)):
         q = torch.from_numpy(unit_rows(rng, b, DIM)).cuda()
         q8, qs = quantize_rows(q)
-        e8, es = dense._q8[:n], dense._qscale[:n]
-        ms = cuda_ms(lambda: dense_scan_q8(q8, qs, dense._q8, dense._qscale,
-                                           n, k))
-        lib = cuda_ms(lambda: torch.topk(
-            torch._int_mm(q8, e8.T).float() * es, k))
+        t = q8_times((q8, qs, dense._q8, dense._qscale, n, k))
         k1 = cuda_ms(lambda: dense_topk(q, dense.embeddings, n, k))
-        nbytes = b * DIM + n * (DIM + 4) + b * k * 8
-        bound = bound_ms(nbytes, 2 * b * n * DIM, INT8_OPS_S)
-        out[b] = {"ms": ms, "lib_ms": lib, "k1_ms": k1, "bound": bound}
-        log(f"[K5] standalone b={b} x {n} x {DIM} int8 k={k}: kernel "
-            f"{ms:.3f} ms, torch._int_mm + scale + topk {lib:.3f} ms, K1 "
-            f"(bf16) at the same shape {k1:.3f} ms, bound {bound[0]:.4f} ms "
+        bound = bound_ms(*q8_bound(b, n, DIM, k), INT8_OPS_S)
+        out[b] = {**t, "k1_ms": k1, "bound": bound}
+        log(f"[K5] standalone b={b} x {n} x {DIM} int8 k={k}: wgmma body "
+            f"{t['ms']:.3f} ms, first body {t['first_ms']:.3f} ms, "
+            f"torch._int_mm + scale + topk {t['lib_ms']:.3f} ms, K1 (bf16) "
+            f"at the same shape {k1:.3f} ms, bound {bound[0]:.4f} ms "
             f"({bound[1]}) ({card})")
     return out
 
@@ -1290,10 +1340,12 @@ def q8_standalone(kb, card: str) -> dict:
 # Each port kernel's device functions (K3's rows up to one block's shared
 # memory and K2' run K2's body: merge_segsum_kernel<PACKED, FULL,
 # GATHER>; K1 has two bodies, dense_scan_sm90_kernel and
-# dense_scan_kernel). dense_merge_kernel serves K1, K5 and K7 alike; the
-# profiled requests run only K1 of them.
+# dense_scan_kernel; K5 two, dense_scan_q8_sm90_kernel<TQ> and
+# dense_scan_kernel<signed char>). dense_merge_kernel serves K1, K5 and K7
+# alike; it counts as K1's.
 PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "dense_scan_sm90_kernel": "K1",
+                "dense_scan_q8_sm90_kernel": "K5",
                 "row_max_kernel": "K3", "tile_merge_kernel": "K3",
                 "global_stage_kernel": "K3", "full_segsum_kernel": "K3",
                 "combine_topk_kernel": "K4", "ivf_scan_kernel": "K6",
@@ -1434,21 +1486,25 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f}s "
         f"(nvcc {runtime.build_info['seconds']:.1f}s) "
         f"{runtime.build_info['path']}")
-    func, sm90_spill_lines = "", 0
+    func = ""
+    wgmma_bodies = ("dense_scan_sm90_kernel", "dense_scan_q8_sm90_kernel")
+    spill_lines = dict.fromkeys(wgmma_bodies, 0)
     for line in runtime.build_info["log"].splitlines():
         if m := re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?(\w+)", line):
             func = m.group(1)
         if "registers" in line or "spill" in line:
             log(f"[build] {func}: {line.strip()}")
-        if "spill" in line and "dense_scan_sm90_kernel" in func:
-            sm90_spill_lines += 1
-            assert re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
-                             line), f"K1's wgmma body spills: {line}"
-    # No ptxas report for the kernel means the log or its format changed,
-    # and the check above saw nothing.
-    assert sm90_spill_lines >= 1, (
-        f"{sm90_spill_lines} ptxas spill lines for dense_scan_sm90_kernel")
+        for body in wgmma_bodies:
+            if "spill" in line and body in func:
+                spill_lines[body] += 1
+                assert re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                 r"loads", line), f"{body} spills: {line}"
+    # No ptxas report for a kernel means the log or its format changed,
+    # and the check above saw nothing (K5's body has two tiles).
+    assert spill_lines == {"dense_scan_sm90_kernel": 1,
+                           "dense_scan_q8_sm90_kernel": 2}, (
+        f"ptxas spill lines of the wgmma bodies: {spill_lines}")
 
     # -- 3. K1 against its plain version --------------------------------------
     launch_counts["dense_topk_sm90"] = 0
@@ -1588,9 +1644,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8. the int8 + IVF slice at 1M --------------------------------------------
-    for args in ((32, 20480, 20000, DIM, 20), (512, 8192, 8000, DIM, 8),
-                 (5, 300, 20, 48, 40), (3, 1000, 1000, 64, 600)):
-        check_q8(*args, seed=args[0] + args[-1])
+    for i, args in enumerate(Q8_SHAPES):
+        before = launch_counts["dense_scan_q8_sm90"]
+        check_q8(*args, seed=20 + i, runs=2)
+        assert launch_counts["dense_scan_q8_sm90"] == before + 2 * (
+            args[3] % 16 == 0), f"K5's route at {args}"
+    for args in ((B_IVF, 20_480, 20_000, DIM, 2 * K_IVF),
+                 (512, 8192, 8000, DIM, 8), (3, 1000, 1000, 64, 600)):
+        check_q8(*args, seed=args[0], first_body=True)
     err8 = max(check_gather(B_IVF, 2 * K_IVF, 50_000, DIM, seed=1),
                check_gather(7, 16, 300, DIM, torch.float32, seed=2),
                check_gather(3, 5, 100, 37, seed=3))
@@ -1602,8 +1663,11 @@ def main() -> int:
                  (4, 30, 6, 36, 8, torch.bfloat16),
                  (6, 50, 10, 64, 12, torch.float32)):
         err6 = max(err6, check_ivf(*args, seed=args[0] + args[4]))
-    log(f"[K5] 4 shapes (k up to 600, k > n_valid, unaligned D) bit-identical "
-        f"to the plain version; [K6] int8 bit-identical, bf16 / fp32 "
+    log(f"[K5] {len(Q8_SHAPES)} shapes x 2 runs (b 1-512, D in {{40, 48, "
+        f"1024, 4096}}, k 1-600, n_valid < N, k > n_valid; D=40 on the first "
+        f"body, the rest on the wgmma body) and the first body at 3 aligned "
+        f"shapes: bit-identical to the plain version; [K6] int8 "
+        f"bit-identical, bf16 / fp32 "
         f"max|dscore|={err6:.3e} at 6 shapes (empty and small clusters); "
         f"[K8] max|dscore|={err8:.3e} at 3 shapes ({card})")
     ivf_kernels = kernels + (dense_scan_q8, ivf_probe_topk, gather_scores)
@@ -1614,12 +1678,15 @@ def main() -> int:
     for name in ("ivf_probe_topk", "gather_scores", "dense_scan_q8",
                  "combine_topk"):
         assert ivf_launches[name] > 0, f"{name} was not launched in phase 8"
+    assert ivf_launches["dense_scan_q8_sm90"] == ivf_launches[
+        "dense_scan_q8"], "a 1M request's K5 launch missed the wgmma body"
     k5 = replay_q8(iv["calls"]["dense_scan_q8"])
     k6 = replay_ivf(iv["calls"]["ivf_probe_topk"])
     k8 = replay_gather(iv["calls"]["gather_scores"])
     err8 = max(err8, k8["err"])
     del iv["calls"]
-    for name, r, lib in (("K5", k5, "torch._int_mm + scale + topk "
+    for name, r, lib in (("K5", k5, f"first body {k5['first_ms']:.3f} ms, "
+                                    "torch._int_mm + scale + topk "
                                     f"{k5['lib_ms']:.3f} ms, "),
                          ("K6", k6, ""), ("K8", k8, "")):
         log(f"[{name}] one request's {len(r['shapes'])} launch(es) on the 1M "
@@ -1629,18 +1696,19 @@ def main() -> int:
     q8_standalone(iv["kb"], card)
     bf = check_ivf_bf16(iv["kb"], iv["qv"], card)
     err6 = max(err6, bf["err"])
-    prof = iv["profile"]
-    if prof["busy_ms"] > 0:
-        log(f"[perf] ivf: one profiled hybrid_ivf request (b={B_IVF}, with "
-            f"the 1000-row tail): wall {prof['wall_ms']:.2f} ms, device busy "
-            f"{prof['busy_ms']:.3f} ms, idle share "
-            f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; busiest: "
-            + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
-        log("[perf] ivf: device ms by port kernel in the profiled request: "
-            + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items()))
-    else:
-        log("[perf] ivf: device busy time not measured (the profiler "
-            "recorded no device events)")
+    for mode, prof in iv["profiles"].items():
+        if prof["busy_ms"] > 0:
+            log(f"[perf] ivf: one profiled {mode} request (b={B_IVF}, with "
+                f"the 1000-row tail): wall {prof['wall_ms']:.2f} ms, device "
+                f"busy {prof['busy_ms']:.3f} ms, idle share "
+                f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; busiest: "
+                + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
+            log(f"[perf] ivf: device ms by port kernel in the profiled {mode} "
+                "request: " + ", ".join(f"{n} {ms:.3f}"
+                                        for n, ms in prof["port"].items()))
+        else:
+            log(f"[perf] ivf: {mode} device busy time not measured (the "
+                "profiler recorded no device events)")
     log("[perf] ivf: search_batch p50 " + "; ".join(
         f"{name} {statistics.median(v):.2f} ms (requests: "
         f"{', '.join(f'{x:.2f}' for x in v)})" for name, v in iv["lat"].items())
@@ -1826,7 +1894,7 @@ def main() -> int:
          "bound_ms": k4["bound"][0], "bound_by": k4["bound"][1],
          "library_ms": None},
         {"name": "dense_scan_q8", "route": "cuda",
-         "source": "tpurag_torch/csrc/dense_topk.cu",
+         "source": "tpurag_torch/csrc/dense_topk_q8_sm90.cu",
          "replaces": "tpurag/kernels/quant.py:80",
          "launches": ivf_launches["dense_scan_q8"], "max_abs_err": 0.0,
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],

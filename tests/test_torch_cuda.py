@@ -139,16 +139,27 @@ def test_wide_term_index_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(gv, cv, rtol=1e-6)
 
 
-@pytest.mark.parametrize("b,n_rows,n_valid,d,k", [
-    (32, 20480, 20000, 1024, 20),
-    (512, 8192, 8000, 1024, 8),
-    (5, 300, 20, 48, 40),       # k > n_valid, unaligned D
-    (3, 1000, 1000, 64, 600),   # lists in device memory
-])
+@pytest.mark.parametrize("b,n_rows,n_valid,d,k", chip_smoke.Q8_SHAPES)
 def test_int8_scan_kernel_matches_plain(cuda, b, n_rows, n_valid, d, k):
-    before = launch_counts["dense_scan_q8"]
-    chip_smoke.check_q8(b, n_rows, n_valid, d, k, seed=b + k)
-    assert launch_counts["dense_scan_q8"] == before + 1
+    """K5 as routed, twice on the same inputs and bit-identical each time:
+    D % 16 == 0 takes the TMA + int8 wgmma body, D = 40 the first body."""
+    before = (launch_counts["dense_scan_q8"],
+              launch_counts["dense_scan_q8_sm90"])
+    chip_smoke.check_q8(b, n_rows, n_valid, d, k, seed=b + k, runs=2)
+    sm90 = 2 if d % 16 == 0 else 0
+    assert (launch_counts["dense_scan_q8"],
+            launch_counts["dense_scan_q8_sm90"]) == (before[0] + 2,
+                                                     before[1] + sm90)
+
+
+@pytest.mark.parametrize("b,n_rows,n_valid,d,k", [
+    (32, 20480, 20000, 1024, 20), (512, 8192, 8000, 1024, 8),
+    (3, 1000, 1000, 64, 600)])
+def test_int8_first_body_matches_plain_on_aligned_rows(cuda, b, n_rows,
+                                                       n_valid, d, k):
+    before = launch_counts["dense_scan_q8_sm90"]
+    chip_smoke.check_q8(b, n_rows, n_valid, d, k, seed=b, first_body=True)
+    assert launch_counts["dense_scan_q8_sm90"] == before
 
 
 @pytest.mark.parametrize("b,m,n,d,dtype", [

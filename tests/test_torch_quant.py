@@ -19,10 +19,14 @@ import torch
 from tpurag.index.dense import DenseIndex as JaxDenseIndex
 from tpurag.kernels import quant as jq
 from tpurag_torch.index.dense import DenseIndex
-from tpurag_torch.kernels.quant import (dense_scan_q8, dense_scan_q8_ref,
-                                        dense_topk_q8, gather_scores,
-                                        gather_scores_ref, quantize_rows,
-                                        rescore_topk)
+from tpurag_torch.kernels.dense import (H100_SMS, MAX_MERGE_CANDIDATES,
+                                        sm90_splits)
+from tpurag_torch.kernels.quant import (Q8_RESIDENT_MAX_D, dense_scan_q8,
+                                        dense_scan_q8_ref, dense_topk_q8,
+                                        gather_scores, gather_scores_ref,
+                                        q8_sm90_route, q8_sm90_tile,
+                                        quantize_rows, rescore_topk)
+from tpurag_torch.kernels.runtime import cdiv
 
 torch.set_float32_matmul_precision("highest")
 
@@ -64,6 +68,8 @@ def _codes(rng, n, d, b):
     (900, 128, 9, 16, 900),
     (333, 40, 2, 5, 300),     # n_valid < n
     (256, 32, 4, 12, 5),      # k > n_valid: ids -1
+    (700, 64, 33, 31, 650),   # the largest k whose lists stay in shared
+    (700, 64, 33, 40, 650),   # memory at K5's 128-query tile, and past it
 ])
 def test_scan_q8_plain_bit_identical_to_jax(n, d, b, k, n_valid):
     rng = np.random.default_rng(n + k)
@@ -221,3 +227,63 @@ def test_quant_wrappers_reject_unsupported_device():
         gather_scores(torch.zeros((2, 8), device="meta"),
                       torch.zeros((4, 8), device="meta"),
                       torch.zeros((2, 3), dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("d,ptrs,want", [
+    (1024, (0, 4096), True),
+    (64, (16, 32), True),
+    (48, (0, 0), True),        # rows of 48 bytes: TMA zero-fills the box
+    (40, (0, 0), False),       # rows of 40 bytes: the first body
+    (1024, (8, 0), False),     # unaligned query codes
+    (1024, (0, 4100), False),  # unaligned corpus codes
+])
+def test_q8_sm90_route(d, ptrs, want):
+    """K5's wgmma body takes what a TMA tensor map can address."""
+    assert q8_sm90_route(d, *ptrs) is want
+
+
+@pytest.mark.parametrize("b,d,tile", [
+    (1, 1024, 32), (32, 1024, 32), (33, 1024, 128), (512, 1024, 128),
+    (32, Q8_RESIDENT_MAX_D, 32),
+    (8, Q8_RESIDENT_MAX_D + 16, 128),  # the queries no longer fit
+])
+def test_q8_sm90_tile(b, d, tile):
+    assert q8_sm90_tile(b, d) == tile
+
+
+@pytest.mark.parametrize("b,n_valid,k", [
+    (32, 1_000_000, 20), (512, 1_000_000, 8), (1, 1000, 1),
+    (32, 1_000_000, 600), (33, 2900, 32)])
+def test_q8_splits_fill_one_wave(b, n_valid, k):
+    """K5's wgmma body takes K1's splits: its 32-query tile serves B <= 32,
+    one query tile as at K1's 128, so (query tiles x splits) blocks fill
+    132 SMs in one wave at 32 x 1M and 512 x 1M, every split holds a
+    corpus tile, and the merge's S * k candidates stay in bounds."""
+    s = sm90_splits(b, n_valid, k)
+    q_tiles = cdiv(b, q8_sm90_tile(b, 1024))
+    n_tiles = cdiv(n_valid, 128)
+    assert s >= 1 and q_tiles * s <= H100_SMS
+    assert s * k <= MAX_MERGE_CANDIDATES
+    assert (s - 1) * cdiv(n_tiles, s) < n_tiles  # every split holds a tile
+    if n_valid == 1_000_000 and k < 600:
+        assert q_tiles * s in (131, 132)  # 7813 tiles: 131 x 60 or 33 x 4
+    if k == 600:
+        assert s == MAX_MERGE_CANDIDATES // k
+
+
+@pytest.mark.parametrize("probe", ["full", "stages6", "stages8", "stages10",
+                                   "no_mma", "no_fold", "stream", "stream8",
+                                   "stream10"])
+def test_k5_anatomy_patches_apply(probe):
+    """tools/k5_anatomy.py times K5's wgmma body with textual patches of
+    its source; each anchor must be in the source exactly once."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k5_anatomy.py"
+    spec = importlib.util.spec_from_file_location("k5_anatomy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.patched(tool.PROBES[probe])
+    assert "dense_scan_q8_sm90_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")

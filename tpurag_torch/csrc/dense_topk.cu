@@ -1,7 +1,8 @@
-// K1's first body: fused dense cosine top-k for Hopper (sm_90a), and K5,
-// its int8 form. Aligned bf16 corpora take K1's TMA + wgmma body
-// (dense_topk_sm90.cu); this one serves fp32, bf16 rows that TMA cannot
-// address (D % 8 != 0 or unaligned pointers), and K5.
+// K1's first body: fused dense cosine top-k for Hopper (sm_90a), and K5's
+// first body, its int8 form. Aligned bf16 corpora take K1's TMA + wgmma
+// body (dense_topk_sm90.cu), aligned int8 ones K5's (dense_topk_q8_sm90.cu);
+// this one serves fp32, and bf16 / int8 rows that TMA cannot address (D %
+// 8 != 0 / D % 16 != 0, or unaligned pointers).
 //
 // K1 replaces the Pallas kernel tpurag/kernels/dense.py:dense_topk_pallas
 // (body _dense_topk_kernel). Same contract: (B, k) float32 scores

@@ -1,7 +1,8 @@
 // Shared by K1's two bodies (dense_topk.cu: WMMA, every dtype; and
-// dense_topk_sm90.cu: TMA + wgmma, aligned bf16) and K5: the fold of a
-// score row into its running list, and the launcher of the pass that
-// merges the S split lists of each query.
+// dense_topk_sm90.cu: TMA + wgmma, aligned bf16) and K5's two (the int8
+// form of dense_topk.cu; dense_topk_q8_sm90.cu: TMA + int8 wgmma): the
+// fold of a score row into its running list, and the launcher of the pass
+// that merges the S split lists of each query.
 #pragma once
 
 #include <cuda_runtime.h>

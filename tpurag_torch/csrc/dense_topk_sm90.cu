@@ -42,14 +42,15 @@
 // - TMA zero-fills rows past N and B and columns past D; the fold masks
 //   rows >= n_valid and skips queries >= B.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
 
 #include "dense_topk.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int TQ = 128;       // queries per block: the wgmma N side
 constexpr int TN = 128;       // corpus rows per tile: two warpgroups x 64
@@ -61,92 +62,7 @@ constexpr int LDS = TN + 4;   // score tile row stride (floats)
 constexpr int BOX_BYTES = TN * TD * 2;  // one 128 x 64 bf16 box (TQ == TN)
 constexpr int STAGE_BYTES = 2 * BOX_BYTES;
 constexpr int SC_BYTES = TQ * LDS * 4;
-constexpr int ALIGN = 1024;   // a 128-byte-swizzle box starts 1024-aligned
-constexpr int MAX_SMEM = 232448;  // 227 KB: Hopper's per-block limit
 constexpr int BAR_BYTES = 2 * STAGES * 8;  // the static mbarriers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .b64 st;\n"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
-      "}\n" ::"r"(smem_u32(bar))
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-}
-
-// TMA: the box at (column c0, row c1) of a 2-D tensor map into shared
-// memory; completion counts its bytes on the barrier.
-__device__ __forceinline__ void tma_load(void* dst, uint64_t map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major box with 128-byte rows and
-// 128-byte swizzle: start address >> 4, leading offset 1 (unused when
-// swizzled), stride 1024 bytes between 8-row groups, layout type 1.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products (they are registers the asm statements share).
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (+)= A . B^T for this warpgroup: A 64 corpus rows x 16, B 128 queries
 // x 16, both K-major bf16 in shared memory; scale_d 0 overwrites d.
@@ -307,47 +223,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out
-// its address, so the library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (rows, cols) row-major bf16 matrix cut into 128-row x 64-column boxes
-// with 128-byte swizzle; out-of-bounds elements read as zero.
-bool encode_boxes(EncodeTiled fn, CUtensorMap* map, const void* ptr,
-                  int rows, int cols) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {TD, TN};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 // K1 on bf16 q (B, D) and emb (N, D), D % 8 == 0, 16-byte aligned; S
@@ -360,22 +235,22 @@ extern "C" int tr_dense_topk_sm90(const void* q, const void* emb, int B,
   if (B < 1 || D < 8 || D % 8 != 0 || reinterpret_cast<uintptr_t>(q) % 16 ||
       reinterpret_cast<uintptr_t>(emb) % 16)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap q_map, e_map;
-  memset(&q_map, 0, sizeof(q_map));
-  memset(&e_map, 0, sizeof(e_map));
-  if (!encode_boxes(fn, &q_map, q, B, D)) return (int)cudaErrorInvalidValue;
-  // No rows, no tiles: the kernel issues no copy through e_map.
-  if (n_valid > 0 && !encode_boxes(fn, &e_map, emb, N, D))
-    return (int)cudaErrorInvalidValue;
+  // 128 x 64 bf16 boxes of both operands. No rows, no tiles: the kernel
+  // issues no copy through e_map.
+  CUtensorMap q_map, e_map{};
+  cudaError_t err = encode_boxes(&q_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                 q, B, D, TQ);
+  if (err == cudaSuccess && n_valid > 0)
+    err = encode_boxes(&e_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, emb, N,
+                       D, TN);
+  if (err != cudaSuccess) return (int)err;
   // The running lists stay in shared memory where they fit beside the
   // ring and the score tile (k <= 31), else in the (B, S, k) scratch.
   const size_t lists = (size_t)TQ * k * (sizeof(float) + sizeof(int));
   const size_t base = ALIGN + (size_t)STAGES * STAGE_BYTES + SC_BYTES;
   const bool lists_in_smem = base + lists + BAR_BYTES <= (size_t)MAX_SMEM;
   const size_t smem = base + (lists_in_smem ? lists : 0);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       dense_scan_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -1,0 +1,159 @@
+// Hopper pieces shared by the TMA + wgmma bodies of K1
+// (dense_topk_sm90.cu, bf16) and K5 (dense_topk_q8_sm90.cu, int8): the
+// mbarrier and TMA helpers, the wgmma descriptor of a 128-byte-swizzled
+// K-major box and the fences around asynchronous products, and the
+// tensor-map encoder, fetched at run time so the library needs no -lcuda.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace sm90 {
+
+constexpr int ALIGN = 1024;       // a 128-byte-swizzle box starts 1024-aligned
+constexpr int MAX_SMEM = 232448;  // 227 KB: Hopper's per-block limit
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 st;\n"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// TMA: the box at (column c0, row c1) of a 2-D tensor map into shared
+// memory; completion counts its bytes on the barrier.
+__device__ __forceinline__ void tma_load(void* dst, uint64_t map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major box with 128-byte rows and
+// 128-byte swizzle: start address >> 4, leading offset 1 (unused when
+// swizzled), stride 1024 bytes between 8-row groups, layout type 1. One
+// k-step reads 32 bytes of each row (16 bf16 or 32 int8): +2.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products (they are registers the asm statements share).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out
+// its address, so the library needs no link against libcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (rows, cols) row-major matrix of `elem_bytes`-wide elements cut into
+// boxes of box_rows rows x 128 bytes with 128-byte swizzle; out-of-bounds
+// elements read as zero. The row pitch (cols * elem_bytes) must be a
+// multiple of 16 bytes and ptr 16-byte aligned.
+inline cudaError_t encode_boxes(CUtensorMap* map, CUtensorMapDataType dtype,
+                                int elem_bytes, const void* ptr, int rows,
+                                int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  memset(map, 0, sizeof(*map));
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+}  // namespace sm90

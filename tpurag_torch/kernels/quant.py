@@ -1,6 +1,6 @@
 # Ported from tpurag/kernels/quant.py (dense_topk_xla_q8 -> dense_scan_q8_ref,
-# dense_topk_pallas_q8 -> csrc/dense_topk.cu's int8 form,
-# gather_scores_pallas -> csrc/gather_scores.cu).
+# dense_topk_pallas_q8 -> csrc/dense_topk_q8_sm90.cu and the int8 form of
+# csrc/dense_topk.cu, gather_scores_pallas -> csrc/gather_scores.cu).
 """int8-quantized dense scan with an exact rescore.
 
 - ``quantize_rows``: per-row symmetric max-abs int8 codes plus one fp32
@@ -11,6 +11,12 @@
   per-row constant, applied after the kernel (it cannot reorder a
   query's list). Values are masked by their pre-scale value, so empty
   slots always carry id -1. ``dense_scan_q8_ref`` is the plain version.
+  K5 has two bodies: corpora whose rows TMA can address
+  (``q8_sm90_route``) take the TMA + int8 wgmma one
+  (csrc/dense_topk_q8_sm90.cu) with a 32-query tile whose queries stay in
+  shared memory for B <= 32, else K1's 128-query tile
+  (``q8_sm90_tile``); every other corpus takes the first body (the int8
+  form of csrc/dense_topk.cu).
 - ``gather_scores`` (K8's wrapper): (B, M) fp32 dots of each query with
   its M candidate rows of the storage-dtype corpus; ``gather_scores_ref``
   is the plain version (a gather, then an fp32 einsum).
@@ -28,7 +34,8 @@ import ctypes
 
 import torch
 
-from tpurag_torch.kernels.dense import DTYPE_CODE, dense_splits
+from tpurag_torch.kernels.dense import (DTYPE_CODE, _sm_count, dense_splits,
+                                        sm90_splits)
 from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
                                           launch_counts, load_kernels)
 
@@ -36,6 +43,12 @@ _BIG = 2**30
 # |dot| <= 127^2 * D stays below 2^24, so an fp32 product of int8 codes is
 # exact in any summation order, up to this D.
 EXACT_FP32_DIM = 1040
+# K5's TMA + int8 wgmma body (csrc/dense_topk_q8_sm90.cu): its two query
+# tiles, and the largest D whose 32 query rows stay in shared memory
+# beside the 4-stage ring, the score tile and lists up to k = 69.
+Q8_SMALL_TILE = 32
+Q8_TILE = 128
+Q8_RESIDENT_MAX_D = 4096
 
 
 def quantize_rows(emb: torch.Tensor):
@@ -82,13 +95,48 @@ def dense_scan_q8_ref(q_i8, q_scale, emb_i8, e_scale, n_valid: int, k: int):
     return vals * q_scale.float()[:, None], ids
 
 
+def q8_sm90_route(d: int, *ptrs: int) -> bool:
+    """Whether an int8 corpus takes K5's TMA + wgmma body: rows of a
+    multiple of 16 bytes (D % 16 == 0) and 16-byte aligned code pointers
+    (what a TMA tensor map needs). Every other corpus takes the first
+    body."""
+    return d % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+
+
+def q8_sm90_tile(b: int, d: int) -> int:
+    """K5's wgmma query tile: 32 queries, loaded once and kept in shared
+    memory, for B <= 32 where they fit (D <= Q8_RESIDENT_MAX_D); else
+    K1's 128 queries, streamed through the ring beside the corpus."""
+    return Q8_SMALL_TILE if b <= Q8_SMALL_TILE and d <= Q8_RESIDENT_MAX_D \
+        else Q8_TILE
+
+
 def dense_scan_q8(q_i8, q_scale, emb_i8, e_scale, n_valid: int, k: int):
     """int8 top-k of (B, D) query codes against the first n_valid rows of
     the (N, D) corpus codes: (B, k) fp32 approximate cosines (descending,
     ties to the smaller id) and int32 ids, -1 for empty slots. CPU tensors
-    take the plain version; CUDA tensors launch K5 or raise."""
+    take the plain version; CUDA tensors launch K5
+    (csrc/dense_topk_q8_sm90.cu where ``q8_sm90_route`` allows it, else
+    csrc/dense_topk.cu) or raise."""
     if emb_i8.device.type == "cpu":
         return dense_scan_q8_ref(q_i8, q_scale, emb_i8, e_scale, n_valid, k)
+    return _dense_scan_q8_cuda(q_i8, q_scale, emb_i8, e_scale, n_valid, k,
+                               sm90=None)
+
+
+def _dense_scan_q8_first_body(q_i8, q_scale, emb_i8, e_scale, n_valid: int,
+                              k: int):
+    """K5's first body (the int8 form of csrc/dense_topk.cu) on a CUDA
+    corpus that the route would send to the wgmma body: called by name
+    only to time the two bodies on the same inputs."""
+    return _dense_scan_q8_cuda(q_i8, q_scale, emb_i8, e_scale, n_valid, k,
+                               sm90=False)
+
+
+def _dense_scan_q8_cuda(q_i8, q_scale, emb_i8, e_scale, n_valid: int, k: int,
+                        sm90):
+    """Launch one of K5's bodies: sm90 None routes by ``q8_sm90_route``,
+    False takes the first body."""
     if emb_i8.device.type != "cuda":
         raise ValueError(f"dense_scan_q8: unsupported device {emb_i8.device}")
     tensors = (q_i8, q_scale, emb_i8, e_scale)
@@ -115,21 +163,31 @@ def dense_scan_q8(q_i8, q_scale, emb_i8, e_scale, n_valid: int, k: int):
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_v, out_i
-    splits = dense_splits(b, n_valid, k)
+    if sm90 is None:
+        sm90 = q8_sm90_route(d, q_i8.data_ptr(), emb_i8.data_ptr())
+    lib = load_kernels()
+    if sm90:
+        # sm90_splits counts 128-query tiles; the 32-query tile serves
+        # B <= 32, one tile either way.
+        splits = sm90_splits(b, n_valid, k, _sm_count(dev))
+        fn, head = lib.tr_dense_topk_q8_sm90, (q8_sm90_tile(b, d),)
+    else:
+        splits = dense_splits(b, n_valid, k)
+        fn, head = lib.tr_dense_topk_q8, ()
     part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-    fn = load_kernels().tr_dense_topk_q8
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (6 + len(head))
+                   + [ctypes.c_void_p] * 5)
     err = fn(q_i8.data_ptr(), emb_i8.data_ptr(), e_scale.data_ptr(), b, n, d,
-             n_valid, k, splits, part_v.data_ptr(), part_i.data_ptr(),
+             n_valid, k, *head, splits, part_v.data_ptr(), part_i.data_ptr(),
              out_v.data_ptr(), out_i.data_ptr(), cuda_stream(dev))
     check_launch(err, "dense_scan_q8")
+    # Every K5 launch counts under dense_scan_q8; the wgmma body's also
+    # under dense_scan_q8_sm90, so a run shows which body ran.
     launch_counts["dense_scan_q8"] += 1
+    if sm90:
+        launch_counts["dense_scan_q8_sm90"] += 1
     return out_v * q_scale[:, None], out_i
 
 
