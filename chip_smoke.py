@@ -17,9 +17,15 @@ non-zero before the result line):
      K3 merge_segsum_full against merge_segsum_full_ref at every narrow
      class (p in {64, 256, 1024, 2048} x t in {2, 8}) and the 1M point's
      wide shapes (p in {4096 .. 32768} x t in {2, 4}, up to W = 131072),
-     both layouts where packing applies; K4 combine_topk against
-     combine_narrow_wide at narrow W in {2048, 16384} x wide W in {4096,
-     32768, 131072} x k in {8, 40};
+     both layouts where packing applies; K4 combine_topk_classes against
+     combine_classes_ref at its edges (K4_CASES: a doc straddling a chunk
+     boundary, a narrow lane on an item's first doc, Ww below, equal to
+     and not a multiple of the chunk, several narrow tiles, ties across
+     items, an all-invalid wide row, k past the candidates) x k in {1, 8,
+     40, 200} and k=1100, each twice, and one class at narrow W in {2048,
+     16384} x wide W in {4096, 32768, 131072} x k in {8, 40}; at g=64,
+     16384 + 131072 lanes, K4 timed beside its first body
+     (tools/bm25_combine_first.cu, built by tools/k4_anatomy.py);
   5. the 100k slice: KnowledgeBase(dim=1024, device="cuda") ingests 100k
      chunks (bench.py's Zipf postings plan: df = clip(2048 (1+r)^-0.5,
      16, 2048) over a 50k vocabulary, ~1.05M postings), answers 4
@@ -32,11 +38,13 @@ non-zero before the result line):
      vocab 158110, df up to 20480, ~16.2M postings, 1M x 1024 bf16):
      ingest through add_chunks, 4 search_batch(hybrid) requests of 512
      queries (about half hold a wide term) with every counter reset just
-     before, one profiled request, 64 hard queries' keyword top-8 against
-     a CPU index of the same postings; every K1 launch took the TMA +
-     wgmma body; K1 (both bodies, within TOL at near ties), K2, K3 and K4
-     (bit for bit) held to their plain versions and timed on the very
-     inputs one request gave them.
+     before, one profiled request (device busy, K4's and the gathers'
+     shares), 64 hard queries' keyword top-8 against a CPU index of the
+     same postings; every K1 launch took the TMA + wgmma body, and K4
+     launched exactly once per request; K1 (both bodies, within TOL at near
+     ties), K2, K3 and K4 (bit for bit) held to their plain versions and
+     timed on the very inputs one request gave them, K4 beside its first
+     body's per-class launches on the same rows.
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
      (benchmarks/kb_10m.py --n 1000000 with the device store): K5's TMA +
      int8 wgmma body at Q8_SHAPES (each twice) and its first body, K6
@@ -45,8 +53,8 @@ non-zero before the result line):
      1024-center mixture through add_chunks, build_ivf() packs 4096 int8
      lists, then 4 search_batch requests each of hybrid_ivf at b=32 and
      b=8 and of hybrid at b=32 with every counter reset just before; every
-     K5 launch took the wgmma body; K5, K6 and K8 replayed bit for bit (K8
-     within 1e-5) on one request's own inputs; K5's two bodies beside K1
+     K5 launch took the wgmma body; K5, K6, K8 and K4 replayed bit for bit
+     (K8 within 1e-5) on one request's own inputs; K5's two bodies beside K1
      and torch._int_mm at b=32 and b=512; K6's bf16 form on a 100k-row
      bf16 IVF; mode 'ivf' recall@10 >= 0.95 against the full probe; the
      same partition on the CPU giving the same ids; 1000 chunks after the
@@ -404,9 +412,140 @@ def check_combine(g: int, wn: int, ww: int, k: int, n_docs: int = N_DOCS,
     assert (i_k[:, 0] >= 0).any(), "no hits at all: the case is vacuous"
     if not timed:
         return 0.0, None, None
-    args = (n_val, n_doc, w_seg, w_doc, k, window)
-    return (0.0, cuda_ms(lambda: combine_topk(*args)),
-            cuda_ms(lambda: combine_narrow_wide(*args)))
+    return (0.0, k4_launch_ms(n_val, n_doc, [(w_seg, w_doc, None, None)], k),
+            cuda_ms(lambda: combine_narrow_wide(n_val, n_doc, w_seg, w_doc, k,
+                                                window)))
+
+
+def k4_launch_ms(n_val, n_doc, classes, k: int) -> float:
+    """K4's device time: its launch alone, repeated on one prepared table
+    (the wrapper's host work, the table build and upload, left out)."""
+    from tpurag_torch.kernels.bm25_join import _k4_prepare, _k4_run
+    from tpurag_torch.kernels.runtime import load_kernels
+
+    fn = load_kernels().tr_combine_topk_classes
+    prep = _k4_prepare(n_val, classes, k)
+    return cuda_ms(lambda: _k4_run(fn, prep, n_val, n_doc))
+
+
+def k4_full_row(rng, w: int, t: int, n_docs: int, m=None, lo: int = 0,
+                value=None):
+    """One (w,) full row as merge_segsum_full leaves it, on the host: m
+    sorted docs from [lo, n_docs), each over 1..t lanes, its sum at its
+    end lane and NEG_INF on the others, the parked tail at doc 2^30 with a
+    0 at its end lane."""
+    if m is None:
+        m = int(rng.integers(max(1, w // (2 * t)), max(2, w // t)))
+    m = min(m, n_docs - lo)
+    docs = np.sort(rng.choice(np.arange(lo, n_docs), size=m, replace=False))
+    lanes = np.repeat(docs, rng.integers(1, t + 1, size=m))[:w]
+    doc = np.full(w, 2**30, np.int32)
+    val = np.full(w, -3.0e38, np.float32)
+    doc[:len(lanes)] = lanes
+    ends = np.r_[lanes[:-1] != lanes[1:], True]
+    v = rng.uniform(0.05, 4.0, len(lanes)).astype(np.float32)
+    if value is not None:
+        v[:] = value
+    val[:len(lanes)][ends] = v[ends]
+    if len(lanes) < w:
+        val[w - 1] = 0.0
+    return val, doc
+
+
+# K4's edge cases (csrc/bm25_combine.cu: CHUNK = 4096 wide lanes a work
+# item, narrow tiles of NTILE = 2048 lanes): name -> (wn_max, [(members,
+# Ww)], n_docs, narrow t, wide t). "mixed": Ww below, equal to and not a
+# multiple of CHUNK, a one-member class, own narrow widths below wn_max,
+# permuted rows; "tiles": narrow docs crowded into one item's doc range
+# (eight narrow tiles); "ties": every total equal, so ties cross items;
+# "invalid": an all-invalid wide row and a row with no valid narrow lane;
+# "straddle": a doc over wide lanes 4094..4097 (its end lane in the second
+# item) whose narrow lane is that item's first doc; "sparse": fewer
+# candidates than k.
+K4_CASES = {"mixed": (2048, [(3, 5000), (1, 4096), (2, 100), (2, 8195)],
+                      20_000, 4, 3),
+            "tiles": (16384, [(2, 12288)], 200_000, 2, 3),
+            "ties": (1024, [(2, 9000)], 30_000, 4, 3),
+            "invalid": (1024, [(3, 4500)], 30_000, 4, 3),
+            "straddle": (1024, [(1, 8192)], 30_000, 4, 1),
+            "sparse": (64, [(2, 300), (1, 40)], 100_000, 2, 2)}
+
+
+def k4_case(name: str, device="cuda", seed: int = 0):
+    """(n_val, n_doc, classes, window) of one K4_CASES case: classes as
+    combine_topk_classes takes them, (w_seg, w_doc, sel, own narrow
+    width) per class."""
+    wn_max, specs, n_docs, t_n, t_w = K4_CASES[name]
+    rng = np.random.default_rng(seed)
+    h = sum(g for g, _ in specs)
+    perm = rng.permutation(h)
+    widths = np.minimum(rng.choice([wn_max, wn_max // 2, wn_max // 8, 37], h),
+                        wn_max)
+    n_val = np.full((h, wn_max), -3.0e38, np.float32)
+    n_doc = np.full((h, wn_max), 2**30, np.int32)
+    for r in range(h):
+        kw = {}
+        if name == "tiles":
+            widths[r] = wn_max
+            kw = {"m": 11_000, "lo": 1000}
+        elif name == "sparse":
+            kw = {"m": 3}
+        w = int(widths[r])
+        n_val[r, :w], n_doc[r, :w] = k4_full_row(
+            rng, w, t_n, 40_000 if name == "tiles" else n_docs,
+            value=1.0 if name == "ties" else None, **kw)
+    classes, at = [], 0
+    for g, ww in specs:
+        rows = [k4_full_row(rng, ww, t_w, n_docs,
+                            m=5 if name == "sparse" else None,
+                            value=1.0 if name == "ties" else None)
+                for _ in range(g)]
+        w_seg = np.stack([v for v, _ in rows])
+        w_doc = np.stack([d for _, d in rows])
+        members = perm[at:at + g]
+        classes.append([w_seg, w_doc, members, widths[members]])
+        at += g
+    if name == "invalid":
+        w_seg, w_doc, sel, _ = classes[0]
+        w_seg[1], w_doc[1] = -3.0e38, 2**30
+        n_val[sel[2]] = -3.0e38
+    if name == "straddle":
+        w_seg, w_doc, sel, wn = classes[0]
+        w_doc[0, 4094:4098] = w_doc[0, 4093] + 1
+        w_seg[0, 4094:4097] = -3.0e38
+        w_seg[0, 4097] = 2.5
+        d = int(w_doc[0, 4097])
+        assert w_doc[0, 4098] > d
+        r, w = int(sel[0]), int(wn[0])
+        pos = int(np.searchsorted(n_doc[r, :w], d))
+        # d's narrow lanes: an invalid one, then its end lane with a sum
+        # high enough that a second copy of d would show in any top-k.
+        n_doc[r, pos:pos + 2] = d
+        n_val[r, pos:pos + 2] = (-3.0e38, 100.0)
+        assert (np.diff(n_doc[r]) >= 0).all()
+    n_val, n_doc = (torch.from_numpy(x).to(device) for x in (n_val, n_doc))
+    classes = [(torch.from_numpy(ws).to(device),
+                torch.from_numpy(wd).to(device), sel, wn)
+               for ws, wd, sel, wn in classes]
+    return n_val, n_doc, classes, t_n + t_w
+
+
+def check_combine_classes(name: str, k: int, runs: int = 2, seed: int = 0):
+    """The batched K4 on a K4_CASES case against combine_classes_ref on the
+    card, bit for bit, `runs` times (block arrival order must not show)."""
+    from tpurag_torch.kernels.bm25_join import (combine_classes_ref,
+                                                combine_topk_classes)
+
+    n_val, n_doc, classes, window = k4_case(name, seed=seed)
+    v_r, i_r = combine_classes_ref(n_val, n_doc, classes, k, window)
+    for _ in range(runs):
+        v_k, i_k = combine_topk_classes(n_val, n_doc, classes, k, window)
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_r), f"K4 ids differ: {name} k={k}"
+        assert torch.equal(v_k, v_r), f"K4 scores differ: {name} k={k}"
+    assert (i_r[:, 0] >= 0).any(), f"{name}: no hits, the case is vacuous"
+    if name == "sparse" and k >= 16:  # at most 3 + 5 docs a row
+        assert (i_r[:, -1] == -1).all(), "sparse: k must pass the candidates"
 
 
 # K5 at every edge its two bodies have: b in {1, 8, 32} (the wgmma body's
@@ -828,32 +967,79 @@ def replay_full(calls) -> dict:
             "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
 
 
-def replay_combine(calls) -> dict:
-    """K4 on the main path's own inputs: bit-identical to
-    combine_narrow_wide, and the summed times."""
-    from tpurag_torch.kernels.bm25_join import (combine_narrow_wide,
-                                                combine_topk)
-    from tpurag_torch.kernels.runtime import NEG_INF
+def load_tool(name: str):
+    """A module of tools/ by path (tools/ is no package)."""
+    import importlib.util
+    import pathlib
 
-    ms = plain_ms = nbytes = ops = 0.0
+    path = pathlib.Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k4_live_bytes(n_val, n_doc, classes, k: int) -> tuple[float, float]:
+    """(bytes, lanes) K4 must move for this data: every live lane (doc <
+    2^30) of each member's wide row and of its own narrow width, 8 bytes
+    each, once; the (H, k) result; the row table and item list (8 bytes an
+    entry, as bm25_join._k4_table builds them)."""
+    from tpurag_torch.kernels.bm25_join import _K4_CHUNK, _members
+
+    lanes = 0
+    n_table = 0
+    for w_seg, w_doc, sel, wn in classes:
+        g, ww = w_doc.shape
+        rows = _members(sel, g)
+        widths = (np.full(g, n_doc.shape[1]) if wn is None
+                  else np.asarray(wn).reshape(-1))
+        live_n = n_doc[torch.as_tensor(rows, device=n_doc.device)] < 2**30
+        live_n &= (torch.arange(n_doc.shape[1], device=n_doc.device)[None]
+                   < torch.as_tensor(widths, device=n_doc.device)[:, None])
+        lanes += int((w_doc < 2**30).sum().item()) + int(live_n.sum().item())
+        n_table += g * 8 + g * -(-ww // _K4_CHUNK)
+    return lanes * 8 + n_val.shape[0] * k * 8 + n_table * 8, lanes
+
+
+def replay_combine(calls, first=None) -> dict:
+    """K4 on the main path's own inputs (combine_topk_classes calls):
+    bit-identical to combine_classes_ref, and the times of the one launch
+    (device time: k4_launch_ms), the whole wrapper call (its host work
+    included), the plain version and (first: tools/k4_anatomy.py's build
+    of K4's first body) that body's per-class launches on the same
+    rows. The
+    bound is by bytes (k4_live_bytes); the join's one compare a lane would
+    take a tenth of that even at the fp32 rate."""
+    from tpurag_torch.kernels.bm25_join import (combine_classes_ref,
+                                                combine_topk_classes)
+
+    tool = load_tool("k4_anatomy") if first is not None else None
+    ms = call_ms = plain_ms = first_ms = nbytes = lanes = 0.0
     shapes = []
     for args, kw in calls:
-        v_k, i_k = combine_topk(*args, **kw)
-        v_r, i_r = combine_narrow_wide(*args, **kw)
+        v_k, i_k = combine_topk_classes(*args, **kw)
+        v_r, i_r = combine_classes_ref(*args, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), kw
-        ms += cuda_ms(lambda: combine_topk(*args, **kw))
-        plain_ms += cuda_ms(lambda: combine_narrow_wide(*args, **kw))
-        n_val, _, w_seg, _ = args
-        g, wn = n_val.shape
-        ww = w_seg.shape[1]
-        nbytes += g * (wn + ww) * 8 + g * kw["k"] * 8
-        # One compare per binary-search step of each valid lane.
-        ops += ((w_seg > NEG_INF / 2).sum().item() * (wn + 1).bit_length()
-                + (n_val > NEG_INF / 2).sum().item() * (ww + 1).bit_length())
-        shapes.append(f"{g}x({wn}+{ww})")
-    return {"ms": ms, "plain_ms": plain_ms, "shapes": shapes,
-            "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
+        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K4 replay"
+        assert (i_k[:, 0] >= 0).any(), "no hits at all: the replay is vacuous"
+        n_val, n_doc, classes = args
+        ms += k4_launch_ms(n_val, n_doc, classes, kw["k"])
+        call_ms += cuda_ms(lambda: combine_topk_classes(*args, **kw))
+        plain_ms += cuda_ms(lambda: combine_classes_ref(*args, **kw), iters=3,
+                            warmup=1)
+        if tool is not None:
+            first_ms += cuda_ms(tool.first_classes(first, n_val, n_doc,
+                                                   classes, kw["k"]))
+        b, n = k4_live_bytes(n_val, n_doc, classes, kw["k"])
+        nbytes += b
+        lanes += n
+        shapes.append(f"{n_val.shape[0]} rows in {len(classes)} classes ("
+                      + ", ".join(f"{w.shape[0]}x{w.shape[1]}"
+                                  for w, *_ in classes)
+                      + f"), narrow {n_val.shape[1]}, k={kw['k']}")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "first_ms": first_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, lanes, FP32_OPS_S), "nbytes": nbytes}
 
 
 def drive_wide(device: str, kernels=()) -> dict:
@@ -905,14 +1091,15 @@ def drive_wide(device: str, kernels=()) -> dict:
         batches.append((zipf_queries(rng, BATCH_WIDE, VOCAB_WIDE), qv, src))
     hard = [sum(map(is_hard, qs)) for qs, _, _ in batches]
     calls = {n: [] for n in ("dense_topk", "merge_segsum_topk",
-                             "merge_segsum_full", "combine_topk")}
+                             "merge_segsum_full", "combine_topk_classes")}
     t0 = time.perf_counter()
     with recording(dense_mod, "dense_topk", calls["dense_topk"]), \
             recording(inverted_mod, "merge_segsum_topk",
                       calls["merge_segsum_topk"]), \
             recording(inverted_mod, "merge_segsum_full",
                       calls["merge_segsum_full"]), \
-            recording(inverted_mod, "combine_topk", calls["combine_topk"]):
+            recording(inverted_mod, "combine_topk_classes",
+                      calls["combine_topk_classes"]):
         kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
     sync()
     log(f"[wide] warm-up request (compaction included): "
@@ -1021,6 +1208,7 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.config import EngineConfig
     from tpurag_torch.core.types import Chunk
+    from tpurag_torch.index import inverted as inverted_mod
     from tpurag_torch.kernels import ivf_scan as ivf_mod
     from tpurag_torch.kernels import quant as quant_mod
     from tpurag_torch.kernels.runtime import launch_counts, round_up
@@ -1057,9 +1245,11 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
 
     qv, qtexts = ivf_queries(centers, B_IVF)
     calls = {n: [] for n in ("dense_scan_q8", "ivf_probe_topk",
-                             "gather_scores")}
+                             "gather_scores", "combine_topk_classes")}
     with recording(ivf_mod, "ivf_probe_topk", calls["ivf_probe_topk"]), \
-            recording(quant_mod, "gather_scores", calls["gather_scores"]):
+            recording(quant_mod, "gather_scores", calls["gather_scores"]), \
+            recording(inverted_mod, "combine_topk_classes",
+                      calls["combine_topk_classes"]):
         kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid_ivf", vectors=qv)
     with recording(quant_mod, "dense_scan_q8", calls["dense_scan_q8"]):
         kb.search_batch(qtexts, top_k=K_IVF, mode="hybrid", vectors=qv)
@@ -1348,7 +1538,7 @@ PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "dense_scan_q8_sm90_kernel": "K5",
                 "row_max_kernel": "K3", "tile_merge_kernel": "K3",
                 "global_stage_kernel": "K3", "full_segsum_kernel": "K3",
-                "combine_topk_kernel": "K4", "ivf_scan_kernel": "K6",
+                "combine_items_kernel": "K4", "ivf_scan_kernel": "K6",
                 "ivf_merge_kernel": "K6", "dense_co_scan_kernel": "K7",
                 "gather_scores_kernel": "K8"}
 
@@ -1369,8 +1559,8 @@ def device_profile(fn) -> dict:
     """One call of fn under torch.profiler: wall ms (ending in a
     synchronize), device-busy ms (the sum of the card's kernel and copy
     times), the number of those device operations, the busiest device
-    functions (template arguments kept) and each port kernel's device
-    ms."""
+    functions (template arguments kept), each port kernel's device ms
+    and the ms of PyTorch's gathers (vectorized_gather_kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1398,8 +1588,10 @@ def device_profile(fn) -> dict:
     for name, ms in by_name.items():
         if (kern := port_kernel(name)) is not None:
             port[kern] = port.get(kern, 0.0) + ms
+    gather = sum(ms for name, ms in by_name.items()
+                 if name.startswith("vectorized_gather_kernel"))
     return {"wall_ms": wall_ms, "busy_ms": busy, "ops": ops, "top": top,
-            "port": dict(sorted(port.items()))}
+            "port": dict(sorted(port.items())), "gather_ms": gather}
 
 
 def hybrid_chain_profile(bench_mod, iters: int = 10, reps: int = 4) -> dict:
@@ -1566,16 +1758,28 @@ def main() -> int:
         f"kernel {k3w_ms:.3f} ms, plain {k3w_plain_ms:.3f} ms ({card})")
 
     # -- 4c. K4 against its plain version ---------------------------------------
+    for name in K4_CASES:
+        for k in (1, 8, 40, 200):
+            check_combine_classes(name, k, runs=2)
+    check_combine_classes("mixed", 1100, runs=2)  # warp lists in HBM
     for wn in (2048, 16384):
         for ww in (4096, 32768, 131072):
             for k in (8, 40):
                 check_combine(32, wn, ww, k, n_docs=N_WIDE, seed=wn + ww + k)
     _, k4w_ms, k4w_plain_ms = check_combine(64, 16384, 131072, 8,
                                             n_docs=N_WIDE, timed=True)
-    log(f"[K4] narrow W in {{2048, 16384}} x wide W in {{4096, 32768, "
-        f"131072}} x k in {{8, 40}} bit-identical to combine_narrow_wide; "
-        f"g=64 16384+131072 lanes k=8: kernel {k4w_ms:.3f} ms, plain "
-        f"{k4w_plain_ms:.3f} ms ({card})")
+    k4_tool = load_tool("k4_anatomy")
+    k4_first = k4_tool.build_first(runtime.BUILD_DIR / "k4_first")
+    k4w_args = combine_rows(64, 16384, 131072, N_WIDE)[:4]
+    k4w_first_ms = cuda_ms(lambda: k4_tool.first_combine(k4_first,
+                                                         *k4w_args, 8))
+    log(f"[K4] {len(K4_CASES)} edge cases ({', '.join(K4_CASES)}) x k in "
+        f"{{1, 8, 40, 200}} and k=1100, each twice, and one class at narrow "
+        f"W in {{2048, 16384}} x wide W in {{4096, 32768, 131072}} x k in "
+        f"{{8, 40}}: bit-identical to the plain version; g=64 16384+131072 "
+        f"lanes k=8: kernel {k4w_ms:.3f} ms, first body {k4w_first_ms:.3f} "
+        f"ms, "
+        f"plain {k4w_plain_ms:.3f} ms ({card})")
 
     # -- 5. the 100k slice ------------------------------------------------------
     run = drive_slice("cuda", (dense_topk, merge_segsum_topk))
@@ -1596,11 +1800,13 @@ def main() -> int:
         assert n > 0, f"{name} was not launched on the wide path"
     assert launches["dense_topk_sm90"] == launches["dense_topk"], (
         "a 1M request's K1 launch missed the TMA + wgmma body")
+    assert launches["combine_topk"] == 4 and min(wide["hard"]) > 0, (
+        "K4 must launch exactly once per 1M request")
     calls = wide["calls"]
     k1 = replay_dense(calls["dense_topk"])
     k2 = replay_merge(calls["merge_segsum_topk"])
     k3 = replay_full(calls["merge_segsum_full"])
-    k4 = replay_combine(calls["combine_topk"])
+    k4 = replay_combine(calls["combine_topk_classes"], k4_first)
     del calls, wide["calls"]
     err1 = max(err1, k1["err"], k1["first_err"])
     wide_p50 = statistics.median(wide["lat_ms"])
@@ -1618,10 +1824,13 @@ def main() -> int:
         f"({', '.join(k3['shapes'])}) bit-identical to the plain version: "
         f"kernel {k3['ms']:.3f} ms, plain {k3['plain_ms']:.3f} ms, bound "
         f"{k3['bound'][0]:.4f} ms ({k3['bound'][1]}) ({card})")
-    log(f"[K4] one request's {len(k4['shapes'])} launches on the 1M path "
-        f"({', '.join(k4['shapes'])}) bit-identical to combine_narrow_wide: "
-        f"kernel {k4['ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms, bound "
-        f"{k4['bound'][0]:.4f} ms ({k4['bound'][1]}) ({card})")
+    log(f"[K4] one request's launch on the 1M path "
+        f"({'; '.join(k4['shapes'])}) bit-identical to combine_classes_ref: "
+        f"kernel {k4['ms']:.3f} ms (the wrapper's whole call "
+        f"{k4['call_ms']:.3f} ms), the first body's per-class launches "
+        f"{k4['first_ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms, bound "
+        f"{k4['bound'][0]:.4f} ms ({k4['bound'][1]}: "
+        f"{k4['nbytes'] / 1e6:.1f} MB live) ({card})")
     prof = wide["profile"]
     if prof["busy_ms"] > 0:
         log(f"[perf] 1M: one profiled request: wall {prof['wall_ms']:.2f} ms, "
@@ -1629,7 +1838,10 @@ def main() -> int:
             f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; busiest: "
             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
         log("[perf] 1M: device ms by port kernel in the profiled request: "
-            + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items()))
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items())
+            + f"; K4 share {prof['port'].get('K4', 0.0) / prof['busy_ms']:.3f}"
+            f", vectorized_gather_kernel {prof['gather_ms']:.3f} ms (share "
+            f"{prof['gather_ms'] / prof['busy_ms']:.3f})")
     else:
         log("[perf] 1M: device busy time not measured (the profiler "
             "recorded no device events)")
@@ -1683,6 +1895,12 @@ def main() -> int:
     k5 = replay_q8(iv["calls"]["dense_scan_q8"])
     k6 = replay_ivf(iv["calls"]["ivf_probe_topk"])
     k8 = replay_gather(iv["calls"]["gather_scores"])
+    k4i = replay_combine(iv["calls"]["combine_topk_classes"])
+    log(f"[K4] phase 8's launch ({', '.join(k4i['shapes'])}) bit-identical "
+        f"to combine_classes_ref: kernel {k4i['ms']:.3f} ms (whole call "
+        f"{k4i['call_ms']:.3f} ms), plain "
+        f"{k4i['plain_ms']:.3f} ms, bound {k4i['bound'][0]:.4f} ms "
+        f"({k4i['bound'][1]}) ({card})")
     err8 = max(err8, k8["err"])
     del iv["calls"]
     for name, r, lib in (("K5", k5, f"first body {k5['first_ms']:.3f} ms, "

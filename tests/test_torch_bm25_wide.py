@@ -321,3 +321,99 @@ def test_head_m_layout_matches_jax(exact):
                 tm[tl.term_row[tid] + 1].numpy(),
                 np.asarray(jm[jl.term_row[jt] + 1]))
     _assert_same_search(jidx, tidx, ["common t3", "t5 t7 common", "pad t1"])
+
+
+def test_round1_json_postings_load_matches_jax(tmp_path):
+    """The round-1 .npz (postings as one JSON object of per-term doc / tf
+    lists, no offsets, no tombstones) loads in both packages, and the
+    loaded indexes answer narrow and wide-term queries alike."""
+    import json
+
+    jidx, _ = _pair(_corpus())
+    path = tmp_path / "round1.npz"
+    np.savez(path, vocab=json.dumps(jidx.vocab),
+             doc_len=np.asarray(jidx.doc_len, np.int32),
+             n_docs=jidx.n_docs,
+             postings=json.dumps({"doc": jidx._postings_doc,
+                                  "tf": jidx._postings_tf}))
+    cfg = dict(packed_merge=False, wide_term_width=8)
+    jl = JaxInvertedIndex.load(path, JaxBM25Config(**cfg))
+    tl = InvertedIndex.load(path, BM25Config(**cfg), device="cpu")
+    assert tl._total_tokens == sum(jidx.doc_len) == jl._total_tokens
+    assert tl.n_docs == jl.n_docs and not tl._dead
+    # "common" is wide at width 8; "rare" and "unique" are narrow.
+    _assert_same_search(jl, tl, ["common rare", "half unique", "rare",
+                                 "common half rare unique"])
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K4_CASES))
+def test_combine_classes_plain_matches_per_class_and_jax(name):
+    """combine_topk_classes on CPU tensors (its plain version) against
+    combine_narrow_wide per class, in the port and in JAX, at K4's edge
+    cases: several classes of different Ww, permuted rows, own narrow
+    widths below wn_max, a one-member class, a row with no valid narrow
+    lane, an all-invalid wide row."""
+    n_val, n_doc, classes, window = chip_smoke.k4_case(name, device="cpu")
+    k = 12
+    before = launch_counts["combine_topk"]
+    v, i = bm25_join.combine_topk_classes(n_val, n_doc, classes, k, window)
+    assert launch_counts["combine_topk"] == before
+    assert v.shape == (n_val.shape[0], k) and i.dtype == torch.int32
+    rows = np.concatenate([sel for *_, sel, _ in classes])
+    assert sorted(rows.tolist()) == list(range(n_val.shape[0]))
+    for w_seg, w_doc, sel, _ in classes:
+        sel_t = torch.as_tensor(sel)
+        args = (n_val[sel_t], n_doc[sel_t], w_seg, w_doc)
+        tv, ti = bm25_join.combine_narrow_wide(*args, k, window)
+        jv, ji = jax_join.combine_narrow_wide(
+            *(jnp.asarray(x.numpy()) for x in args), k=k, window=window)
+        assert torch.equal(i[sel_t], ti) and torch.equal(v[sel_t], tv)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert (i[:, 0] >= 0).any()
+
+
+def test_wide_flow_matches_jax_score_on_hard_queries():
+    """The port's _score (wide_flow: one combine_topk_classes call over
+    every wide class) against JAX's on hard queries only: mixed narrow +
+    wide terms, wide terms alone (a row with no narrow lane), classes of
+    several wide widths."""
+    jidx, tidx = _pair(_corpus())
+    for idx in (jidx, tidx):
+        idx.compact()
+    queries = ["common rare", "half unique", "common half rare unique",
+               "common", "common half", "half alt", "common alt rare"]
+    wide = []
+    for idx in (jidx, tidx):
+        rows = [[idx.vocab[w] for w in q.split()] for q in queries]
+        tb = idx._main.term_bucket
+        assert all(any(tb[t] > 8 for t in r) for r in rows)  # all hard
+        wide.append(sorted({int(tb[t]) for r in rows for t in r
+                            if tb[t] > 8}))
+        s, i = idx._score(rows, 10, idx._main)
+        wide.append((np.asarray(s), np.asarray(i)))
+    (jw, (js, ji)), (tw, (ts, ti)) = wide[:2], wide[2:]
+    assert jw == tw and len(tw) >= 2  # several wide widths
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(ts, js, rtol=1e-4)
+    assert (ti[:, 0] >= 0).all()
+
+
+@pytest.mark.parametrize("probe", ["full", "no_join", "no_item_topk",
+                                   "no_row_merge", "chunk2048", "chunk8192",
+                                   "ntile1024", "ntile4096", "threads128",
+                                   "threads128_ntile1024"])
+def test_k4_anatomy_patches_apply(probe):
+    """tools/k4_anatomy.py cuts parts out of K4 by textual patches; each
+    anchor must be in the kernel's source exactly once."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k4_anatomy.py"
+    spec = importlib.util.spec_from_file_location("k4_anatomy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.patched(tool.PROBES[probe])
+    assert "combine_items_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")
+    assert tool.FIRST_SOURCE.exists()

@@ -118,6 +118,24 @@ def test_combine_kernel_matches_plain(cuda, wn, ww, k):
     assert launch_counts["combine_topk"] == before + 1
 
 
+@pytest.mark.parametrize("k", [1, 8, 40, 200])
+@pytest.mark.parametrize("name", list(chip_smoke.K4_CASES))
+def test_combine_classes_kernel_matches_plain(cuda, name, k):
+    """The batched K4 at its edges (chip_smoke.K4_CASES: a doc straddling
+    a chunk boundary, a narrow lane on an item's first doc, Ww below,
+    equal to and not a multiple of the chunk, k past the candidates, ties
+    across items, an all-invalid wide row), bit for bit, run twice."""
+    before = launch_counts["combine_topk"]
+    chip_smoke.check_combine_classes(name, k, runs=2)
+    assert launch_counts["combine_topk"] == before + 2
+
+
+def test_combine_classes_kernel_lists_in_device_memory(cuda):
+    """k = 1100: the warp lists (8 x k keys) pass 64 KB and live in a
+    device-memory scratch."""
+    chip_smoke.check_combine_classes("mixed", 1100, runs=2)
+
+
 def test_wide_term_index_on_card_matches_cpu(cuda):
     from tpurag_torch.core.config import BM25Config
     from tpurag_torch.index.inverted import InvertedIndex

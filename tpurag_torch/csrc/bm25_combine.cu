@@ -8,178 +8,446 @@
 // wide full row (merge_segsum_full output: doc-ascending, each doc's
 // partial sum at its segment-end lane, > NEG_INF / 2; every other lane
 // below; parked lanes at doc 2^30) give the exact top-k of the per-doc
-// totals narrow + wide, ties to the smaller doc, scores <= 0 empty
+// totals narrow + wide, ties to the smaller doc, totals <= 0 empty
 // (NEG_INF, -1).
 //
-// What bounds it on this card: one read of both rows (up to 16384 narrow
-// + 131072 wide lanes at 1M documents, 8 bytes each) and a (k,) write;
-// the binary searches are ~17 shared- or L2-memory reads per valid lane.
+// What bounds it on this card: bytes. Each row is read once (8 bytes a
+// lane; a member reads only its own narrow width, and a wide chunk whose
+// docs are all parked is not read), the (k,) result written once; the
+// join and the selection are a few operations a lane.
 //
-// Design: one block per query row. The narrow docs sit in shared memory
-// (128 KB at 32768 lanes; wider narrow rows are searched in device
-// memory). Each valid wide lane binary-searches its doc among them and
-// adds the narrow sum when it finds one; each valid narrow lane
-// binary-searches the wide row and stands alone when its doc is not
-// there. A doc's total is then one fp32 add of its two sums, the same add
-// the plain version makes (its other window lanes add zeros), so scores
-// are bit-identical. Candidates go into one running top-k list per warp
-// (topk.cuh: a warp inserts a candidate only when it beats its list's last
-// entry; the lists live in a device-memory scratch), and k block-wide
-// argmax passes merge the warps' lists.
+// Design: one launch for a request's whole batch of wide classes, and
+// one block per work item, an item being (member row, wide chunk of
+// CHUNK lanes). A row table (one RowEntry per member: its wide row, width,
+// narrow / output row, own narrow width, first item) and the item list go
+// up from the host in one copy. Item j of a row owns the docs in
+// [w_doc[j CHUNK], w_doc[(j + 1) CHUNK]) (the first from below every doc,
+// the last up to 2^30, so parked lanes drop out), so every doc, and every
+// narrow lane, belongs to exactly one item. A doc's lanes can straddle a
+// chunk boundary (a full row repeats a doc over up to t lanes, only the
+// segment-end lane valid): the range rule gives that doc to the item
+// holding its end lane, and the lanes left in the item below are invalid
+// ones, which the join skips. Two warp-wide 32-ary searches find the
+// item's narrow sub-range. The wide chunk and the narrow sub-range (in
+// tiles of NTILE lanes; one tile unless the narrow side crowds into the
+// item's doc range) are staged in shared memory by 1-D bulk copies
+// (cp.async.bulk completing on an mbarrier) for their 16-byte-aligned
+// middles and plain loads for the unaligned edges. The two doc-sorted
+// ranges are then joined by merge path: each thread takes one diagonal
+// segment of the merged order (narrow lanes first on equal docs) and
+// walks it linearly, with no per-lane search. A valid wide lane adds the
+// narrow row's last lane of its doc when that lane is valid (one fp32
+// add, as the plain version's segment sum makes it); a valid narrow lane
+// stands alone when the wide chunk's last lane of its doc is not valid.
+// Each warp keeps a running top-k of (score, doc) keys; the item's warp
+// lists merge by rank (each entry's place is its index plus the entries
+// above it in the other lists) into the item's sorted top-k in a scratch
+// buffer. The row's last item to finish (a fence and an atomic count on
+// the row entry, which that item sets back to zero) merges the row's item
+// lists the same way, in item order, into the output row. Keys are
+// distinct (each doc belongs to one item), so the result does not depend
+// on the order in which blocks finish.
 
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
 
+#include "sm90.cuh"
 #include "topk.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_STAGED = 32768;   // narrow docs held in shared memory
+constexpr int CHUNK = 4096;  // wide lanes per work item
+constexpr int NTILE = 2048;  // narrow lanes staged at a time
+constexpr int SLACK = 8;     // room for the head offset of an aligned copy
 constexpr int BIG = 1 << 30;
 constexpr float VALID = tr::kNegInf / 2;
+// A (score, doc) key (make_key); the 64-bit type the intrinsics take.
+using Key = unsigned long long;
+constexpr size_t STAGE_BYTES = (size_t)2 * (CHUNK + NTILE + 2 * SLACK) * 4;
+// Warp lists live in shared memory up to this many bytes, else in a
+// device-memory scratch.
+constexpr size_t MAX_SMEM_LISTS = 64 * 1024;
 
-// The last lane of the monotone row doc[0, n) holding doc q, or -1.
-__device__ __forceinline__ int bsearch_last(const int* doc, int n, int q) {
-  int lo = -1, hi = n;  // doc[lo] <= q < doc[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (doc[mid] <= q)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  return lo >= 0 && doc[lo] == q ? lo : -1;
+// One member row of a wide class: 8 int64 in the table the wrapper builds.
+struct RowEntry {
+  const float* w_seg;  // the member's wide row
+  const int* w_doc;
+  long long ww;          // wide width
+  long long sel;         // narrow row of n_val / n_doc, output row
+  long long wn;          // own narrow width (<= the narrow buffers' stride)
+  long long first_item;  // its items are first_item .. first_item + n_items
+  long long n_items;
+  unsigned long long done;  // items finished; zero between launches
+};
+static_assert(sizeof(RowEntry) == 64, "RowEntry is 8 int64");
+
+// (score, doc) as one key: higher key = higher score, then smaller doc.
+// Scores are > 0, so their bits order as the floats do; 0 is no entry.
+__device__ __forceinline__ Key make_key(float v, int d) {
+  return ((Key)__float_as_uint(v) << 32) | (uint32_t)~d;
 }
 
-// Offer each lane's candidate (has, v, d) to the warp's running list.
-__device__ __forceinline__ void offer(bool has, float v, int d, float* lv,
-                                      int* li, int k, float& kv, int& ki) {
-  unsigned want = __ballot_sync(tr::kFullMask,
-                                has && tr::lex_gt(v, d, kv, ki));
+// Insert `key` into the descending warp list l[0, k), dropping l[k - 1].
+// The caller has checked that key > l[k - 1]; keys are distinct. All 32
+// lanes call it.
+__device__ void warp_insert(Key* l, int k, Key key) {
+  const int lane = threadIdx.x & 31;
+  int pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int j = base + lane;
+    pos += __popc(__ballot_sync(tr::kFullMask, j < k && l[j] > key));
+  }
+  // Shift [pos, k - 1) up by one slot, highest chunk first.
+  for (int base = ((k - 1) >> 5) << 5; base >= 0; base -= 32) {
+    const int j = base + lane;
+    const bool write = j < k && j >= pos;
+    Key nk = key;
+    if (write && j > pos) nk = l[j - 1];
+    __syncwarp();
+    if (write) l[j] = nk;
+    __syncwarp();
+  }
+}
+
+// Offer each lane's candidate to the warp's list; kth = l[k - 1] in every
+// lane.
+__device__ __forceinline__ void offer(bool has, Key key, Key* l,
+                                      int k, Key& kth) {
+  unsigned want = __ballot_sync(tr::kFullMask, has && key > kth);
   while (want) {
     const int src = __ffs(want) - 1;
     want &= want - 1;
-    const float cv = __shfl_sync(tr::kFullMask, v, src);
-    const int cd = __shfl_sync(tr::kFullMask, d, src);
-    if (tr::lex_gt(cv, cd, kv, ki)) {  // kv/ki are the same in every lane
-      tr::warp_list_insert(lv, li, k, cv, cd);
-      kv = lv[k - 1];
-      ki = li[k - 1];
+    const Key c = __shfl_sync(tr::kFullMask, key, src);
+    if (c > kth) {
+      warp_insert(l, k, c);
+      kth = l[k - 1];
     }
   }
 }
 
+// Entries of the descending list l[0, k) above key.
+__device__ __forceinline__ int count_above(const Key* l, int k,
+                                           Key key) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (l[mid] > key)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The top k of the WARPS descending lists lists[w * k, (w + 1) * k): each
+// entry's place is its index plus the entries above it in the other lists;
+// emit(place, key) for places 0 .. k - 1, key 0 past the last entry.
+template <class Emit>
+__device__ void merge_lists(const Key* lists, int k, Emit emit) {
+  int total = 0;
+  for (int w = 0; w < WARPS; ++w) total += count_above(lists + w * k, k, 0);
+  for (int e = threadIdx.x; e < WARPS * k; e += THREADS) {
+    const Key key = lists[e];
+    if (key == 0) continue;
+    const int own = e / k;
+    int place = e - own * k;
+    for (int w = 0; w < WARPS && place < k; ++w)
+      if (w != own) place += count_above(lists + w * k, k, key);
+    if (place < k) emit(place, key);
+  }
+  for (int j = total + threadIdx.x; j < k; j += THREADS) emit(j, 0ull);
+}
+
+// First index p in [0, n) of the ascending row doc with doc[p] >= x, else
+// n: a 32-ary search, one warp, every lane returns it.
+__device__ int warp_lower_bound(const int* doc, int n, int x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = n;  // the answer is in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + lane * step + step - 1;
+    const bool lt = p < hi && doc[p] < x;
+    const int c = __popc(__ballot_sync(tr::kFullMask, lt));
+    const int nlo = lo + c * step;
+    hi = min(nlo + step - 1, hi);
+    lo = nlo;
+  }
+  const bool lt = lo + lane < hi && doc[lo + lane] < x;
+  return lo + __popc(__ballot_sync(tr::kFullMask, lt));
+}
+
+// First index p in [0, n) of the ascending shared row doc with
+// doc[p] >= x, else n.
+__device__ __forceinline__ int lower_bound(const int* doc, int n, int x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (doc[mid] < x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Where src[x0, x0 + n) (4-byte elements) goes in shared memory: element
+// x at dst[h + x - x0], h the offset of src + x0 in its 16-byte line, so
+// the aligned middle [mid0, mid1) of dst's indices is one bulk copy and
+// [h, mid0) and [mid1, h + n) are plain loads.
+struct Staged {
+  int h, mid0, mid1, end;
+};
+
+__device__ __forceinline__ Staged staging(const void* src, int n) {
+  Staged s;
+  s.h = (int)(((uintptr_t)src >> 2) & 3);
+  s.end = s.h + n;
+  s.mid0 = (s.h + 3) & ~3;
+  s.mid1 = s.end & ~3;
+  if (s.mid1 <= s.mid0) s.mid0 = s.mid1 = s.end;  // no aligned middle
+  return s;
+}
+
+__device__ __forceinline__ uint32_t middle_bytes(const Staged& s) {
+  return (uint32_t)(s.mid1 - s.mid0) * 4;
+}
+
+// One thread: the bulk copy of the aligned middle, counted on bar.
+__device__ __forceinline__ void bulk_middle(void* dst, const void* src,
+                                            const Staged& s, uint64_t* bar) {
+  if (s.mid1 > s.mid0)
+    sm90::bulk_load((char*)dst + 4 * s.mid0,
+                    (const char*)src + 4 * (s.mid0 - s.h), middle_bytes(s),
+                    bar);
+}
+
+// Every thread: the unaligned head and tail by plain loads.
+__device__ __forceinline__ void plain_edges(int* dst, const int* src,
+                                            const Staged& s) {
+  for (int o = s.h + threadIdx.x; o < s.mid0; o += THREADS)
+    dst[o] = src[o - s.h];
+  for (int o = s.mid1 + threadIdx.x; o < s.end; o += THREADS)
+    dst[o] = src[o - s.h];
+}
+
 __global__ void __launch_bounds__(THREADS)
-    combine_topk_kernel(const float* __restrict__ n_val,
-                        const int* __restrict__ n_doc, int Wn,
-                        const float* __restrict__ w_seg,
-                        const int* __restrict__ w_doc, int Ww, int k,
-                        float* list_v, int* list_i, float* out_v,
-                        int* out_i) {
-  extern __shared__ __align__(128) int staged[];
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int red_p[32];
+    combine_items_kernel(const float* __restrict__ n_val,
+                         const int* __restrict__ n_doc, long long wn_stride,
+                         RowEntry* rows, const long long* __restrict__ items,
+                         int k, Key* ilist, Key* glists,
+                         float* out_v, int* out_i) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* swv = reinterpret_cast<float*>(smem);   // CHUNK + SLACK
+  int* swd = reinterpret_cast<int*>(swv + CHUNK + SLACK);
+  float* snv = reinterpret_cast<float*>(swd + CHUNK + SLACK);  // NTILE + SLACK
+  int* snd = reinterpret_cast<int*>(snv + NTILE + SLACK);
+  Key* lists = glists != nullptr
+                        ? glists + (size_t)blockIdx.x * WARPS * k
+                        : reinterpret_cast<Key*>(smem + STAGE_BYTES);
+  __shared__ uint64_t bars[2];  // wide chunk, narrow tile
+  __shared__ int s_lo, s_hi, s_b0, s_b1, s_tile_hi, s_last;
+
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const size_t row = blockIdx.x;
-  const float* nv = n_val + row * Wn;
-  const int* nd = n_doc + row * Wn;
-  const float* wv = w_seg + row * Ww;
-  const int* wd = w_doc + row * Ww;
-  const int* ndoc = nd;
-  if (Wn <= MAX_STAGED) {
-    for (int i = tid; i < Wn; i += THREADS) staged[i] = nd[i];
-    ndoc = staged;
+  const int lane = tid & 31;
+  const long long item = items[blockIdx.x];
+  RowEntry* row = rows + (item >> 32);
+  const int j = (int)(item & 0xffffffff);
+  const int ww = (int)row->ww;
+  const int wn = (int)row->wn;
+  const long long sel = row->sel;
+  const int a0 = j * CHUNK;
+  const int na = min(CHUNK, ww - a0);
+  const float* wv = row->w_seg + a0;
+  const int* wd = row->w_doc + a0;
+  const float* nv = n_val + sel * wn_stride;
+  const int* nd = n_doc + sel * wn_stride;
+  Key* my_list = lists + warp * k;
+  Key kth = 0;
+
+  for (int e = tid; e < WARPS * k; e += THREADS) lists[e] = 0;
+  const Staged sw_v = staging(wv, na), sw_d = staging(wd, na);
+  if (tid == 0) {
+    sm90::mbar_init(&bars[0], 1);
+    sm90::mbar_init(&bars[1], 1);
+    sm90::fence_mbar_init();
+    // The item's doc range [lo, hi).
+    s_lo = j == 0 ? INT_MIN : wd[0];
+    s_hi = a0 + na < ww ? wd[na] : BIG;
+    if (s_lo < s_hi) {
+      sm90::mbar_expect_tx(&bars[0], middle_bytes(sw_v) + middle_bytes(sw_d));
+      bulk_middle(swv, wv, sw_v, &bars[0]);
+      bulk_middle(swd, wd, sw_d, &bars[0]);
+    }
   }
-  float* lv = list_v + (row * WARPS + warp) * k;
-  int* li = list_i + (row * WARPS + warp) * k;
-  tr::warp_list_init(lv, li, k, BIG);
-  float kv = lv[k - 1];
-  int ki = li[k - 1];
   __syncthreads();
-
-  // Every lane of a warp runs the same trip count (offer is warp-wide).
-  const int ww_pad = (Ww + THREADS - 1) / THREADS * THREADS;
-  const int wn_pad = (Wn + THREADS - 1) / THREADS * THREADS;
-  // Wide lanes: each doc's wide sum, plus its narrow sum where it has one.
-  for (int j = tid; j < ww_pad; j += THREADS) {
-    bool has = false;
-    float v = 0.f;
-    int d = BIG;
-    if (j < Ww && wv[j] > VALID) {
-      d = wd[j];
-      v = wv[j];
-      const int pos = bsearch_last(ndoc, Wn, d);
-      if (pos >= 0 && nv[pos] > VALID) v = __fadd_rn(nv[pos], v);
-      has = d < BIG && v > 0.f;
+  const int lo = s_lo, hi = s_hi;
+  if (lo < hi) {
+    plain_edges(reinterpret_cast<int*>(swv), reinterpret_cast<const int*>(wv),
+                sw_v);
+    plain_edges(swd, wd, sw_d);
+    // The narrow lanes of the item's docs: [b0, b1) of the own width.
+    if (warp == 0) {
+      const int b0 = j == 0 ? 0 : warp_lower_bound(nd, wn, lo);
+      if (lane == 0) s_b0 = b0;
+    } else if (warp == 1) {
+      const int b1 = warp_lower_bound(nd, wn, hi);
+      if (lane == 0) s_b1 = b1;
     }
-    offer(has, v, d, lv, li, k, kv, ki);
-  }
-  // Narrow lanes whose doc the wide row lacks.
-  for (int i = tid; i < wn_pad; i += THREADS) {
-    bool has = false;
-    float v = 0.f;
-    int d = BIG;
-    if (i < Wn && nv[i] > VALID) {
-      d = nd[i];
-      v = nv[i];
-      const int pos = bsearch_last(wd, Ww, d);
-      has = d < BIG && v > 0.f && !(pos >= 0 && wv[pos] > VALID);
-    }
-    offer(has, v, d, lv, li, k, kv, ki);
-  }
-  __syncthreads();  // every warp's list is final
-
-  // Merge: k block-wide argmax passes over the WARPS * k list entries.
-  float* rlv = list_v + row * WARPS * k;
-  const int* rli = list_i + row * WARPS * k;
-  float* ov = out_v + row * k;
-  int* oi = out_i + row * k;
-  for (int pass = 0; pass < k; ++pass) {
-    float bv = -INFINITY;
-    int bd = tr::kIntMax;
-    int bp = tr::kIntMax;
-    for (int e = tid; e < WARPS * k; e += THREADS) {
-      if (rlv[e] > 0.f && tr::lex_gt(rlv[e], rli[e], bv, bd)) {
-        bv = rlv[e];
-        bd = rli[e];
-        bp = e;
+    __syncthreads();
+    const int b0 = s_b0, b1 = s_b1;
+    const int n_tiles = max(1, (b1 - b0 + NTILE - 1) / NTILE);
+    const int* A = swd + sw_d.h;  // the wide chunk, doc-ascending
+    const float* Av = swv + sw_v.h;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const int t0 = b0 + tile * NTILE;
+      const int nb = max(0, min(NTILE, b1 - t0));
+      const Staged sn_v = staging(nv + t0, nb), sn_d = staging(nd + t0, nb);
+      if (tid == 0) {
+        // The shared tile was last read before the previous barrier.
+        sm90::fence_proxy_async();
+        sm90::mbar_expect_tx(&bars[1],
+                             middle_bytes(sn_v) + middle_bytes(sn_d));
+        bulk_middle(snv, nv + t0, sn_v, &bars[1]);
+        bulk_middle(snd, nd + t0, sn_d, &bars[1]);
+        s_tile_hi = tile + 1 < n_tiles ? nd[t0 + nb] : INT_MAX;
       }
-    }
-    tr::block_lex_max3(bv, bd, bp, red_v, red_i, red_p);
-    if (bp == tr::kIntMax) {  // no positive total left
-      for (int j = pass + tid; j < k; j += THREADS) {
-        ov[j] = tr::kNegInf;
-        oi[j] = -1;
+      plain_edges(reinterpret_cast<int*>(snv),
+                  reinterpret_cast<const int*>(nv + t0), sn_v);
+      plain_edges(snd, nd + t0, sn_d);
+      sm90::mbar_wait(&bars[0], 0);
+      sm90::mbar_wait(&bars[1], tile & 1);
+      __syncthreads();
+      const int* B = snd + sn_d.h;
+      const float* Bv = snv + sn_v.h;
+      // The wide lanes of this tile's docs: a tile after the first starts
+      // at its first narrow lane's doc, one before the last ends at the
+      // next tile's first doc (a narrow doc straddling the two belongs to
+      // the later tile, which holds its end lane).
+      const int ia = tile == 0 ? 0 : lower_bound(A, na, B[0]);
+      const int ib = tile + 1 < n_tiles ? lower_bound(A, na, s_tile_hi) : na;
+      const int* As = A + ia;
+      const float* Asv = Av + ia;
+      const int nas = ib - ia;
+      // Merge path: this thread's diagonals [d0, d0 + steps) of the merged
+      // order, narrow lanes before wide ones on equal docs.
+      const int n = nas + nb;
+      const int steps = (n + THREADS - 1) / THREADS;
+      const int d0 = min(tid * steps, n);
+      int lo_i = max(0, d0 - nb), hi_i = min(d0, nas);
+      while (lo_i < hi_i) {
+        const int mid = (lo_i + hi_i) >> 1;
+        if (As[mid] < B[d0 - 1 - mid])
+          lo_i = mid + 1;
+        else
+          hi_i = mid;
       }
-      break;
+      int i = lo_i, jb = d0 - lo_i;
+      for (int s = 0; s < steps; ++s) {
+        bool has = false;
+        Key key = 0;
+        if (d0 + s < n) {
+          if (jb < nb && (i >= nas || B[jb] <= As[i])) {
+            // A narrow lane; its doc's wide lanes, if any, follow it.
+            if (Bv[jb] > VALID) {
+              const int d = B[jb];
+              int e = i;
+              while (e + 1 < nas && As[e + 1] == d) ++e;
+              const bool wide = e < nas && As[e] == d && Asv[e] > VALID;
+              const float v = Bv[jb];
+              has = !wide && d < BIG && v > 0.f;
+              key = make_key(v, d);
+            }
+            ++jb;
+          } else {
+            // A wide lane; its doc's narrow lanes, if any, are behind it.
+            if (Asv[i] > VALID) {
+              const int d = As[i];
+              float v = Asv[i];
+              if (jb > 0 && B[jb - 1] == d && Bv[jb - 1] > VALID)
+                v = __fadd_rn(Bv[jb - 1], v);
+              has = d < BIG && v > 0.f;
+              key = make_key(v, d);
+            }
+            ++i;
+          }
+        }
+        offer(has, key, my_list, k, kth);
+      }
+      __syncthreads();  // the tile is read; every warp list is current
     }
-    if (tid == 0) {
-      ov[pass] = bv;
-      oi[pass] = bd;
-    }
-    if (bp % THREADS == tid) rlv[bp] = -INFINITY;  // its owner takes it out
+  } else {
+    __syncthreads();
   }
+
+  // The item's top-k, sorted, into its scratch list.
+  Key* out_list = ilist + (size_t)blockIdx.x * k;
+  merge_lists(lists, k, [&](int p, Key key) { out_list[p] = key; });
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned long long prev = atomicAdd(&row->done, 1ull);
+    s_last = prev + 1 == (unsigned long long)row->n_items;
+    if (s_last) row->done = 0;  // no other item of the row is left
+  }
+  __syncthreads();
+  if (!s_last) return;
+
+  // The row's last item: merge the row's item lists, in item order.
+  for (int e = tid; e < WARPS * k; e += THREADS) lists[e] = 0;
+  __syncthreads();
+  kth = 0;
+  const Key* first = ilist + (size_t)row->first_item * k;
+  for (int it = warp; it < (int)row->n_items; it += WARPS) {
+    const Key* src = first + (size_t)it * k;
+    for (int base = 0; base < k; base += 32) {
+      const int e = base + lane;
+      const Key key = e < k ? __ldcg(src + e) : 0ull;
+      offer(key != 0, key, my_list, k, kth);
+      // The list is descending: once its chunk ends at or below the warp's
+      // k-th, nothing after it enters.
+      if (__shfl_sync(tr::kFullMask, key, 31) <= kth) break;
+    }
+  }
+  __syncthreads();
+  float* ov = out_v + sel * k;
+  int* oi = out_i + sel * k;
+  merge_lists(lists, k, [&](int p, Key key) {
+    ov[p] = key ? __uint_as_float((uint32_t)(key >> 32)) : tr::kNegInf;
+    oi[p] = key ? (int)~(uint32_t)key : -1;
+  });
 }
 
 }  // namespace
 
-// list_v / list_i: (B, 32, k) scratch for the per-warp running lists.
-extern "C" int tr_combine_topk(const float* n_val, const int* n_doc, int B,
-                               int Wn, const float* w_seg, const int* w_doc,
-                               int Ww, int k, float* list_v, int* list_i,
-                               float* out_v, int* out_i, void* stream) {
+// table: n_rows RowEntry (8 int64 each) then n_items int64 items (row <<
+// 32 | chunk index), as bm25_join._k4_table builds them. ilist: (n_items,
+// k) uint64 scratch; glists: (n_items, 8, k) uint64 scratch when the warp
+// lists do not fit in shared memory, else null. out_v / out_i: (rows of
+// n_val, k), every row a member of exactly one class.
+extern "C" int tr_combine_topk_classes(const float* n_val, const int* n_doc,
+                                       long long wn_stride, void* table,
+                                       int n_rows, int n_items, int k,
+                                       void* ilist, void* glists, float* out_v,
+                                       int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Wn < 1 || Ww < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = Wn <= MAX_STAGED ? (size_t)Wn * sizeof(int) : 0;
+  if (n_rows < 1 || n_items < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  const size_t list_bytes = (size_t)WARPS * k * sizeof(Key);
+  if ((glists == nullptr) != (list_bytes <= MAX_SMEM_LISTS))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = STAGE_BYTES + (glists == nullptr ? list_bytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      combine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(MAX_STAGED * sizeof(int)));
+      combine_items_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  combine_topk_kernel<<<B, THREADS, smem, st>>>(n_val, n_doc, Wn, w_seg,
-                                                w_doc, Ww, k, list_v, list_i,
-                                                out_v, out_i);
+  RowEntry* rows = static_cast<RowEntry*>(table);
+  const long long* items = reinterpret_cast<const long long*>(rows + n_rows);
+  combine_items_kernel<<<n_items, THREADS, smem, st>>>(
+      n_val, n_doc, wn_stride, rows, items, k,
+      static_cast<Key*>(ilist), static_cast<Key*>(glists), out_v,
+      out_i);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Hopper pieces shared by the TMA + wgmma bodies of K1
-// (dense_topk_sm90.cu, bf16) and K5 (dense_topk_q8_sm90.cu, int8): the
-// mbarrier and TMA helpers, the wgmma descriptor of a 128-byte-swizzled
+// (dense_topk_sm90.cu, bf16) and K5 (dense_topk_q8_sm90.cu, int8) and by
+// K4's bulk-copy staging (bm25_combine.cu): the mbarrier, TMA and bulk
+// copy helpers, the wgmma descriptor of a 128-byte-swizzled
 // K-major box and the fences around asynchronous products, and the
 // tensor-map encoder, fetched at run time so the library needs no -lcuda.
 #pragma once
@@ -69,6 +70,29 @@ __device__ __forceinline__ void tma_load(void* dst, uint64_t map,
       "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory; completion counts its
+// bytes on the barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Make freshly initialised barriers visible to the copy engine.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Order this thread's earlier shared-memory accesses before later
+// asynchronous (bulk copy) writes to the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a K-major box with 128-byte rows and

@@ -17,9 +17,9 @@ Device layout (same as the JAX package):
 - queries holding a term whose bucket is wider than ``wide_term_width``
   split additively: their narrow terms and their wide terms each merge
   into full doc-sorted rows of per-doc partial sums, one class at a time
-  (kernels/bm25_merge.merge_segsum_full, K3), and each wide class joins
-  its members' narrow rows into an exact top-k
-  (kernels/bm25_join.combine_topk, K4);
+  (kernels/bm25_merge.merge_segsum_full, K3), and one call joins every
+  wide class with its members' narrow rows into an exact top-k
+  (kernels/bm25_join.combine_topk_classes, K4, one launch per search);
 - ``BM25Config.head_m`` > 0 keeps only a term's head_m highest-impact
   postings (approximate; exact_scoring=True turns it off).
 
@@ -46,7 +46,7 @@ import torch
 from tpurag_torch.core.config import BM25Config
 from tpurag_torch.ingest.tokenizer import tokenize, tokenize_query
 from tpurag_torch.kernels.bm25 import rank_compat, segsum_topk_candidates
-from tpurag_torch.kernels.bm25_join import combine_topk
+from tpurag_torch.kernels.bm25_join import combine_topk_classes
 from tpurag_torch.kernels.bm25_merge import (flip_odd_blocks, merge_ok,
                                              merge_segsum_full,
                                              merge_segsum_topk)
@@ -158,31 +158,33 @@ def wide_flow(n_classes, w_classes, h: int, kk: int, wn_max: int,
     """Device flow for queries holding wide terms.
 
     n_classes / w_classes: lists of (p_max, t, sel, bucketw, rowid, idf),
-    sel a (g,) long tensor of positions in the h-row output and the
+    sel a (g,) host int array of positions in the h-row output and the
     bucketw/rowid/idf (g, t) host arrays of the class's members. Narrow
     classes fill an (h, wn_max) full-row buffer; each wide class merges
-    its own full rows and combines them with its members' narrow rows
-    (one K4 launch per class). Returns (h, kk) scores / ids."""
+    its own full rows, and one combine_topk_classes call (one K4 launch)
+    joins every wide class with its members' narrow rows, each member
+    reading only its own narrow class's width. Returns (h, kk) scores /
+    ids."""
     dev = layout.device
     n_val = torch.full((h, wn_max), NEG_INF, dtype=torch.float32, device=dev)
     n_doc = torch.full((h, wn_max), _BIG, dtype=torch.int32, device=dev)
+    n_width = np.zeros(h, np.int64)
     for p_max, t, sel, bw, ri, idf in n_classes:
         seg, doc_s = _class_full_rows(bw, ri, idf, layout, p_max, t, cbits)
-        n_val[sel, :seg.shape[1]] = seg
-        n_doc[sel, :seg.shape[1]] = doc_s
-    # One doc spans at most max narrow t + wide t lanes across the two
-    # merged sides: the window of the plain version's segment sum.
-    max_tn = max((cls[1] for cls in n_classes), default=0)
-    scores = torch.full((h, kk), NEG_INF, dtype=torch.float32, device=dev)
-    ids = torch.full((h, kk), -1, dtype=torch.int32, device=dev)
+        rows = torch.as_tensor(sel, device=dev)
+        n_val[rows, :seg.shape[1]] = seg
+        n_doc[rows, :seg.shape[1]] = doc_s
+        n_width[sel] = seg.shape[1]
+    classes = []
     for p_max, t, sel, bw, ri, idf in w_classes:
         w_seg, w_doc = _class_full_rows(bw, ri, idf, layout, p_max, t, cbits)
-        s, i = combine_topk(n_val[sel], n_doc[sel], w_seg.contiguous(),
-                            w_doc.contiguous(), k=kk,
-                            window=max(2, max_tn + t))
-        scores[sel] = s
-        ids[sel] = i
-    return scores, ids
+        classes.append((w_seg.contiguous(), w_doc.contiguous(), sel,
+                        n_width[sel]))
+    # One doc spans at most max narrow t + wide t lanes across the two
+    # merged sides: the window of the plain version's segment sum.
+    window = max(2, max((c[1] for c in n_classes), default=0)
+                 + max(c[1] for c in w_classes))
+    return combine_topk_classes(n_val, n_doc, classes, k=kk, window=window)
 
 
 @dataclasses.dataclass
@@ -539,10 +541,10 @@ class InvertedIndex:
                     wide_rows: list[list[int]], kk: int, layout: _Layout):
         """Queries with wide terms. Narrow terms give full doc-sorted
         segsummed rows (one K3 launch per narrow class), wide terms the
-        same per (own width, term count) wide class, and combine_topk
-        adds the partial sums exactly into the top-kk. Each term runs at
-        its own bucket width: a df-20k term does not pad the query's
-        narrow terms to 32768 lanes."""
+        same per (own width, term count) wide class, and one
+        combine_topk_classes call adds the partial sums exactly into the
+        top-kk. Each term runs at its own bucket width: a df-20k term does
+        not pad the query's narrow terms to 32768 lanes."""
         h = len(narrow_rows)
         ladder = tuple(sorted(self.config.width_ladder or ()))
         tb, tr = layout.term_bucket, layout.term_row
@@ -572,9 +574,8 @@ class InvertedIndex:
                         bucketw[gi, ti] = tb[tid]
                         rowid[gi, ti] = tr[tid] + 1  # +1: row 0 = pad
                         idf[gi, ti] = idf_of(tid)
-                sel = torch.as_tensor(members, dtype=torch.long,
-                                      device=self.device)
-                out.append((p_max, t_max, sel, bucketw, rowid, idf))
+                out.append((p_max, t_max, np.asarray(members, np.int64),
+                             bucketw, rowid, idf))
             return out
 
         # Narrow side: full rows scattered into one (h, wn_max) buffer so
@@ -704,10 +705,17 @@ class InvertedIndex:
              device="cuda") -> "InvertedIndex":
         data = np.load(pathlib.Path(path).with_suffix(".npz"),
                        allow_pickle=False)
-        if "post_offsets" not in data:
-            raise NotImplementedError(
-                "the round-1 JSON postings format is not ported; re-save "
-                "the index with the JAX package first")
+        if "post_offsets" not in data:  # round-1 format: JSON postings
+            idx = cls(config, device=device)
+            idx.vocab = json.loads(str(data["vocab"]))
+            idx.doc_len = [int(x) for x in data["doc_len"]]
+            idx.n_docs = int(data["n_docs"])
+            p = json.loads(str(data["postings"]))
+            idx._postings_doc = p["doc"]
+            idx._postings_tf = p["tf"]
+            idx._total_tokens = sum(idx.doc_len)
+            idx._main_count = [0] * len(idx._postings_doc)
+            return idx
         return cls.from_numpy(
             json.loads(str(data["vocab"])), data["doc_len"],
             int(data["n_docs"]), int(data["total_tokens"]),

@@ -1,6 +1,7 @@
 # Ported from tpurag/kernels/bm25_join.py (window_segsum, tiled_topk,
 # dedup_topk, combine_narrow_wide, bsearch_last, join_add,
-# combine_narrow_wide_bsearch); combine_topk is the K4 wrapper.
+# combine_narrow_wide_bsearch); combine_topk_classes and combine_topk
+# are the K4 wrappers.
 """Exact narrow+wide BM25 score combination.
 
 BM25 is additive across query terms, so a query's terms can be scored in
@@ -13,10 +14,14 @@ combined exactly afterwards.
 ``combine_narrow_wide`` is the plain version: both rows become (doc,
 contribution) lists (invalid lanes contribute 0 at their doc, which keeps
 them sorted), one bitonic 2-list merge (kernels/sortmerge.py), a
-windowed segment sum, and a top-k. ``combine_topk`` is its wrapper: a
-CUDA tensor launches K4 (csrc/bm25_combine.cu), a binary-search join
-with a block top-k, which is bit-identical to it; a CPU tensor runs it.
-``combine_narrow_wide_bsearch`` is a second exact reference for the
+windowed segment sum, and a top-k. ``combine_topk_classes`` combines a
+whole batch of wide classes (the wide path's one call per request); its
+plain version ``combine_classes_ref`` runs combine_narrow_wide per class.
+On CUDA tensors it launches K4 (csrc/bm25_combine.cu) once: blocks over
+(member row, wide chunk) work items, a merge-path join of bulk-copied
+rows, per-item and per-row top-k, bit-identical to the plain version; on
+CPU tensors it runs the plain version. ``combine_topk`` is its one-class
+case. ``combine_narrow_wide_bsearch`` is a second exact reference for the
 tests.
 
 The JAX package's pair-row combine (combine_pairs_batched,
@@ -29,15 +34,19 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
                                           launch_counts, load_kernels)
 
 _BIG = 2**30
-# Warps per K4 block (csrc/bm25_combine.cu: THREADS / 32), one running
-# list of k entries each.
-_K4_WARPS = 32
+# csrc/bm25_combine.cu's shapes: warps per block (one running list of k
+# keys each), wide lanes per work item, and the most bytes of warp lists
+# held in shared memory (past it they live in a device-memory scratch).
+_K4_WARPS = 8
+_K4_CHUNK = 4096
+_K4_SMEM_LISTS = 64 * 1024
 
 
 def _next_pow2(x: int) -> int:
@@ -197,48 +206,170 @@ def combine_narrow_wide_bsearch(n_val, n_doc, w_seg, w_doc, k: int):
                       torch.cat([ji, wi], dim=1), k)
 
 
-def combine_topk(n_val, n_doc, w_seg, w_doc, k: int, window: int = 12):
-    """(G, k) exact top-k (scores, ids) of per-doc narrow + wide totals,
-    empties as (NEG_INF, -1). CPU tensors take ``combine_narrow_wide``;
-    CUDA tensors launch K4 (csrc/bm25_combine.cu), whose binary-search
-    join needs no window, or raise."""
+def combine_classes_ref(n_val, n_doc, classes, k: int, window: int = 12):
+    """Plain version of the batched K4: ``combine_narrow_wide`` per wide
+    class on its members' narrow rows, scattered into the (H, k) result.
+    classes: (w_seg, w_doc, sel, wn) per class, as combine_topk_classes
+    takes them (wn is not needed: the narrow rows' padding is parked)."""
+    h = n_val.shape[0]
+    out_v = torch.full((h, k), NEG_INF, dtype=torch.float32,
+                       device=n_val.device)
+    out_i = torch.full((h, k), -1, dtype=torch.int32, device=n_val.device)
+    for w_seg, w_doc, sel, _ in classes:
+        sel_t = torch.as_tensor(_members(sel, w_seg.shape[0]),
+                                device=n_val.device)
+        s, i = combine_narrow_wide(n_val[sel_t], n_doc[sel_t], w_seg, w_doc,
+                                   k, window)
+        out_v[sel_t] = s
+        out_i[sel_t] = i
+    return out_v, out_i
+
+
+def _members(sel, g: int) -> np.ndarray:
+    """A class's narrow / output rows as a host int64 array (None: 0..g-1)."""
+    if sel is None:
+        return np.arange(g, dtype=np.int64)
+    if isinstance(sel, torch.Tensor):
+        sel = sel.cpu().numpy()
+    return np.asarray(sel, dtype=np.int64).reshape(-1)
+
+
+def _k4_table(n_val, classes, chunk: int = _K4_CHUNK):
+    """K4's row table and item list as one int64 host array: per member a
+    RowEntry (csrc/bm25_combine.cu: wide row pointers, wide width, narrow
+    / output row, own narrow width, first item, item count, a zero
+    counter), then per item (row << 32 | chunk index). Returns (table,
+    n_rows, n_items)."""
+    h, wn_max = n_val.shape
+    blocks, sels = [], []
+    first = 0
+    for w_seg, w_doc, sel, wn in classes:
+        g, ww = w_seg.shape
+        members = _members(sel, g)
+        widths = (np.full(g, wn_max, np.int64) if wn is None
+                  else np.asarray(wn, np.int64).reshape(-1))
+        if len(members) != g or len(widths) != g:
+            raise ValueError("combine_topk_classes: sel / wn must give one "
+                             "entry per wide row")
+        if ((widths < 1) | (widths > wn_max)).any():
+            raise ValueError(f"combine_topk_classes: narrow widths outside "
+                             f"[1, {wn_max}]")
+        n_it = -(-ww // chunk)
+        rows = np.zeros((g, 8), np.int64)
+        stride = np.arange(g, dtype=np.int64) * ww * 4
+        rows[:, 0] = w_seg.data_ptr() + stride
+        rows[:, 1] = w_doc.data_ptr() + stride
+        rows[:, 2] = ww
+        rows[:, 3] = members
+        rows[:, 4] = widths
+        rows[:, 5] = first + np.arange(g, dtype=np.int64) * n_it
+        rows[:, 6] = n_it
+        blocks.append(rows)
+        sels.append(members)
+        first += g * n_it
+    rows = np.concatenate(blocks)
+    sel_all = np.concatenate(sels)
+    if (len(sel_all) != h or (sel_all < 0).any() or (sel_all >= h).any()
+            or np.bincount(sel_all, minlength=h).max() != 1):
+        raise ValueError("combine_topk_classes: every narrow row must belong "
+                         "to exactly one class")
+    n_items = rows[:, 6]
+    row_of = np.repeat(np.arange(len(rows), dtype=np.int64), n_items)
+    chunk_of = np.arange(first, dtype=np.int64) - np.repeat(rows[:, 5],
+                                                            n_items)
+    table = np.concatenate([rows.reshape(-1), (row_of << 32) | chunk_of])
+    return table, len(rows), int(first)
+
+
+def _k4_prepare(n_val, classes, k: int, chunk: int = _K4_CHUNK) -> dict:
+    """Everything one K4 launch needs but the rows: the table, uploaded in
+    one copy from pinned memory (no stream sync on the host), the outputs
+    and the scratch. The kernel leaves the table's counters at zero, so a
+    prepared launch can be repeated."""
+    dev = n_val.device
+    table, n_rows, n_items = _k4_table(n_val, classes, chunk)
+    h = n_val.shape[0]
+    return {"table": torch.from_numpy(table).pin_memory().to(
+                dev, non_blocking=True),
+            "n_rows": n_rows, "n_items": n_items, "k": k,
+            "out_v": torch.empty((h, k), dtype=torch.float32, device=dev),
+            "out_i": torch.empty((h, k), dtype=torch.int32, device=dev),
+            "ilist": torch.empty((n_items, k), dtype=torch.int64, device=dev),
+            "glists": (torch.empty((n_items, _K4_WARPS, k),
+                                   dtype=torch.int64, device=dev)
+                       if _K4_WARPS * k * 8 > _K4_SMEM_LISTS else None)}
+
+
+def _k4_run(fn, prep: dict, n_val, n_doc) -> int:
+    """Launch K4 through the C entry `fn` (tr_combine_topk_classes or a
+    copy of it) on a prepared launch; returns its cudaError_t."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    glists = prep["glists"]
+    return fn(n_val.data_ptr(), n_doc.data_ptr(), n_val.shape[1],
+              prep["table"].data_ptr(), prep["n_rows"], prep["n_items"],
+              prep["k"], prep["ilist"].data_ptr(),
+              None if glists is None else glists.data_ptr(),
+              prep["out_v"].data_ptr(), prep["out_i"].data_ptr(),
+              cuda_stream(n_val.device))
+
+
+def combine_topk_classes(n_val, n_doc, classes, k: int, window: int = 12):
+    """(H, k) exact top-k (scores, ids) of per-doc narrow + wide totals for
+    a batch of wide classes, empties as (NEG_INF, -1).
+
+    n_val / n_doc: (H, Wn) narrow full rows. classes: (w_seg, w_doc, sel,
+    wn) per wide class: its (g, Ww) wide full rows, the g narrow rows (and
+    output rows) of its members (host ints; None = 0..g-1) and each
+    member's own narrow width (host ints, <= Wn, lanes past it parked;
+    None = Wn). Every narrow row belongs to exactly one class. CPU tensors
+    take ``combine_classes_ref`` (`window`: the most lanes one doc spans on
+    the two sides); CUDA tensors launch K4 once (csrc/bm25_combine.cu),
+    or raise."""
     if n_val.device.type == "cpu":
-        return combine_narrow_wide(n_val, n_doc, w_seg, w_doc, k, window)
+        return combine_classes_ref(n_val, n_doc, classes, k, window)
     if n_val.device.type != "cuda":
         raise ValueError(f"combine_topk: unsupported device {n_val.device}")
-    tensors = (n_val, n_doc, w_seg, w_doc)
-    if any(x.device != n_val.device for x in tensors):
+    wides = [x for cls in classes for x in cls[:2]]
+    if any(x.device != n_val.device for x in [n_doc, *wides]):
         raise ValueError("combine_topk: inputs on different devices")
-    if n_val.dtype != torch.float32 or w_seg.dtype != torch.float32 or (
-            n_doc.dtype != torch.int32 or w_doc.dtype != torch.int32):
+    if (n_val.dtype != torch.float32 or n_doc.dtype != torch.int32
+            or any(x.dtype != torch.float32 for x in wides[0::2])
+            or any(x.dtype != torch.int32 for x in wides[1::2])):
         raise TypeError("combine_topk: sums must be float32, docs int32")
     if (n_val.dim() != 2 or n_val.shape != n_doc.shape
-            or w_seg.shape != w_doc.shape or w_seg.shape[0] != n_val.shape[0]):
+            or any(w.dim() != 2 or w.shape != d.shape
+                   for w, d in zip(wides[0::2], wides[1::2]))):
+        raise ValueError("combine_topk: expected (H, Wn) narrow and (g, Ww) "
+                         "wide rows")
+    if not all(x.is_contiguous() for x in [n_val, n_doc, *wides]):
+        raise ValueError("combine_topk: inputs must be contiguous")
+    h, wn = n_val.shape
+    if (not classes or wn < 1 or k < 1
+            or any(w.shape[1] < 1 for w in wides[0::2])):
+        raise ValueError(f"combine_topk: bad classes, Wn={wn} or k={k}")
+    prep = _k4_prepare(n_val, classes, k)
+    check_launch(_k4_run(load_kernels().tr_combine_topk_classes, prep, n_val,
+                         n_doc), "combine_topk")
+    launch_counts["combine_topk"] += 1
+    return prep["out_v"], prep["out_i"]
+
+
+def combine_topk(n_val, n_doc, w_seg, w_doc, k: int, window: int = 12):
+    """(G, k) exact top-k (scores, ids) of per-doc narrow + wide totals of
+    one wide class, empties as (NEG_INF, -1): combine_topk_classes with
+    one class. CPU tensors take ``combine_narrow_wide``; CUDA tensors
+    launch K4, or raise."""
+    if n_val.device.type == "cpu":
+        return combine_narrow_wide(n_val, n_doc, w_seg, w_doc, k, window)
+    if w_seg.dim() != 2 or w_seg.shape[0] != n_val.shape[0]:
         raise ValueError("combine_topk: expected (G, Wn) narrow and (G, Ww) "
                          "wide rows")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("combine_topk: inputs must be contiguous")
-    g, wn = n_val.shape
-    ww = w_seg.shape[1]
-    if wn < 1 or ww < 1 or k < 1:
-        raise ValueError(f"combine_topk: bad Wn={wn}, Ww={ww} or k={k}")
-    dev = n_val.device
-    out_v = torch.empty((g, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((g, k), dtype=torch.int32, device=dev)
-    if g == 0:
-        return out_v, out_i
-    list_v = torch.empty((g, _K4_WARPS, k), dtype=torch.float32, device=dev)
-    list_i = torch.empty((g, _K4_WARPS, k), dtype=torch.int32, device=dev)
-    fn = load_kernels().tr_combine_topk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    err = fn(n_val.data_ptr(), n_doc.data_ptr(), g, wn, w_seg.data_ptr(),
-             w_doc.data_ptr(), ww, k, list_v.data_ptr(), list_i.data_ptr(),
-             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(dev))
-    check_launch(err, "combine_topk")
-    launch_counts["combine_topk"] += 1
-    return out_v, out_i
+    if n_val.shape[0] == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=n_val.device),
+                torch.empty((0, k), dtype=torch.int32, device=n_val.device))
+    return combine_topk_classes(n_val, n_doc, [(w_seg, w_doc, None, None)], k,
+                                window)
