@@ -14,10 +14,17 @@ non-zero before the result line):
      emb.T) timed on the same inputs;
   4. K2 merge_segsum_topk against merge_segsum_topk_ref for every width
      class p in {64, 256, 1024, 2048} x t in {1, 2, 8}, packed and not;
-     K3 merge_segsum_full against merge_segsum_full_ref at every narrow
-     class (p in {64, 256, 1024, 2048} x t in {2, 8}) and the 1M point's
-     wide shapes (p in {4096 .. 32768} x t in {2, 4}, up to W = 131072),
-     both layouts where packing applies; K4 combine_topk_classes against
+     K3 merge_segsum_full_classes against its plain version at its edges
+     (K3_CASES: a doc whose t lanes straddle an item boundary at t = 4
+     and 16, docs in every slot, an all-parked row, empty slots, a slot
+     wider than p_max, t = 1, W = 131072 at t = 4 and 8, cbits 12 and 14,
+     a class mix in one launch), each twice, and merge_segsum_full (the
+     same kernel fed (doc, con) rows) at every narrow class (p in {64,
+     256, 1024, 2048} x t in {2, 8}) and the 1M point's wide shapes (p in
+     {4096 .. 32768} x t in {2, 4}, up to W = 131072), both layouts where
+     packing applies, timed beside K3's first body at W = 131072
+     (tools/bm25_full_first.cu, built by tools/k3_anatomy.py); K4
+     combine_topk_classes against
      combine_classes_ref at its edges (K4_CASES: a doc straddling a chunk
      boundary, a narrow lane on an item's first doc, Ww below, equal to
      and not a multiple of the chunk, several narrow tiles, ties across
@@ -38,13 +45,13 @@ non-zero before the result line):
      vocab 158110, df up to 20480, ~16.2M postings, 1M x 1024 bf16):
      ingest through add_chunks, 4 search_batch(hybrid) requests of 512
      queries (about half hold a wide term) with every counter reset just
-     before, one profiled request (device busy, K4's and the gathers'
-     shares), 64 hard queries' keyword top-8 against a CPU index of the
-     same postings; every K1 launch took the TMA + wgmma body, and K4
-     launched exactly once per request; K1 (both bodies, within TOL at near
-     ties), K2, K3 and K4 (bit for bit) held to their plain versions and
-     timed on the very inputs one request gave them, K4 beside its first
-     body's per-class launches on the same rows.
+     before, one profiled request (device busy, K3's, K4's and the
+     gathers' shares), 64 hard queries' keyword top-8 against a CPU index
+     of the same postings; every K1 launch took the TMA + wgmma body, and
+     K3 and K4 launched exactly once per request; K1 (both bodies, within
+     TOL at near ties), K2, K3 and K4 (bit for bit) held to their plain
+     versions and timed on the very inputs one request gave them, K3 and
+     K4 beside their first bodies' per-class launches on the same rows.
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
      (benchmarks/kb_10m.py --n 1000000 with the device store): K5's TMA +
      int8 wgmma body at Q8_SHAPES (each twice) and its first body, K6
@@ -280,10 +287,12 @@ def check_merge(b: int, t: int, p: int, cbits: int, k: int = 8,
 
 def check_full(b: int, t: int, p: int, cbits: int, n_docs: int = N_DOCS,
                seed: int = 0, timed: bool = False):
-    """K3 against its plain version on the card: same network, same sums,
-    so seg and doc_s must be bit-identical. Returns (max_abs_err, kernel
-    ms, plain ms)."""
-    from tpurag_torch.kernels.bm25_merge import (merge_segsum_full,
+    """K3 fed (doc, con) rows (merge_segsum_full) against its plain version
+    on the card: the same merge order, the same sums, so seg and doc_s
+    must be bit-identical. Returns (max_abs_err, kernel ms: the launch
+    alone, plain ms)."""
+    from tpurag_torch.kernels.bm25_merge import (block_classes,
+                                                 merge_segsum_full,
                                                  merge_segsum_full_ref)
 
     doc, con = (torch.from_numpy(x).cuda() for x in merge_rows(
@@ -297,7 +306,7 @@ def check_full(b: int, t: int, p: int, cbits: int, n_docs: int = N_DOCS,
     assert (seg_k > 0).any(), "no segment sums at all: the case is vacuous"
     if not timed:
         return 0.0, None, None
-    return (0.0, cuda_ms(lambda: merge_segsum_full(doc, con, p, t, cbits)),
+    return (0.0, k3_launch_ms(block_classes(doc, con, p, t, cbits)),
             cuda_ms(lambda: merge_segsum_full_ref(doc, con, p, t, cbits)))
 
 
@@ -546,6 +555,181 @@ def check_combine_classes(name: str, k: int, runs: int = 2, seed: int = 0):
     assert (i_r[:, 0] >= 0).any(), f"{name}: no hits, the case is vacuous"
     if name == "sparse" and k >= 16:  # at most 3 + 5 docs a row
         assert (i_r[:, -1] == -1).all(), "sparse: k must pass the candidates"
+
+
+def k3_matrix(rng, w: int, lists, n_docs: int):
+    """One bucket matrix of width w as index/inverted.py builds them: row
+    0 the pad row, then one row per doc list (sorted, unique, at most w),
+    padded with doc 2^30 and impact 0. Returns (doc, imp, live) host
+    arrays."""
+    doc = np.full((len(lists) + 1, w), 2**30, np.int32)
+    imp = np.zeros((len(lists) + 1, w), np.float32)
+    live = np.zeros(len(lists) + 1, np.int32)
+    for r, docs in enumerate(lists, start=1):
+        doc[r, :len(docs)] = docs
+        imp[r, :len(docs)] = rng.uniform(0.2, 2.0, len(docs))
+        live[r] = len(docs)
+    return doc, imp, live
+
+
+def k3_lists(rng, n_rows: int, w: int, n_docs: int, fill=(0.5, 1.0)):
+    """n_rows random doc lists of (fill) x w docs from [0, n_docs)."""
+    lo, hi = max(1, int(fill[0] * w)), max(1, int(fill[1] * w))
+    return [np.sort(rng.choice(n_docs, int(rng.integers(lo, hi + 1)),
+                               replace=False)) for _ in range(n_rows)]
+
+
+def k3_straddle_lists(rng, t: int, w: int, n_docs: int, chunk: int = 4096):
+    """t doc lists of at most w docs that all hold doc n_docs // 2, with
+    chunk - t // 2 docs below it in all: its t lanes take merged ranks
+    chunk - t // 2 .. chunk + t // 2 - 1, across an item boundary."""
+    d = n_docs // 2
+    below = np.full(t, (chunk - t // 2) // t)
+    below[:(chunk - t // 2) % t] += 1
+    out = []
+    for x in below:
+        above = int(rng.integers(1, w - x))
+        out.append(np.concatenate([
+            np.sort(rng.choice(d, int(x), replace=False)), [d],
+            d + 1 + np.sort(rng.choice(n_docs - d - 1, above,
+                                       replace=False))]))
+    return out
+
+
+def k3_class(rng, mats, p_max: int, t: int, g: int, cbits: int, sel=None,
+             empty=0.0, rows=None):
+    """A class spec as merge_segsum_full_classes takes it, its slots drawn
+    from `mats` ({width: (doc, imp, live)}, host): widths <= p_max at
+    random (a share `empty` of the slots empty), or the given (g, t)
+    (width, matrix row) pairs in `rows`; idf in [0.5, 3)."""
+    widths = sorted(w for w in mats if w <= p_max)
+    bucketw = np.zeros((g, t), np.int32)
+    rowid = np.zeros((g, t), np.int32)
+    live = np.zeros((g, t), np.int32)
+    for i in range(g):
+        for s in range(t):
+            if rows is not None:
+                w, r = rows[i][s]
+            elif rng.random() < empty:
+                continue
+            else:
+                w = int(rng.choice(widths))
+                r = int(rng.integers(1, mats[w][0].shape[0]))
+            bucketw[i, s] = w
+            rowid[i, s] = r
+            live[i, s] = mats[w][2][r] if w in mats else 0
+    idf = rng.uniform(0.5, 3.0, (g, t)).astype(np.float32)
+    return (p_max, t, cbits, sel, bucketw, rowid, live, idf)
+
+
+# K3's edge cases (csrc/bm25_full.cu: output chunks of CHUNK = 4096 lanes
+# a work item). "straddle": t = 4, a doc in every slot whose 4 lanes take
+# ranks 4094..4097 (its end lane in the second item); "straddle16": t =
+# 16 at p = 512, the same at ranks 4088..4103; "every16": t = 16 at p =
+# 64, 24 docs in every slot; "parked": an all-parked row, empty slots, a
+# slot wider than p_max, t = 1 and w < p_max; "wide4" / "wide8": W =
+# 131072 at t = 4 and t = 8; "packed12" / "packed14": cbits 12 and 14
+# (docs past (2^31 - 1) >> 14 park); "mix": narrow and wide classes of
+# several shapes in one launch, rows permuted.
+K3_CASES = ("straddle", "straddle16", "every16", "parked", "wide4", "wide8",
+            "packed12", "packed14", "mix")
+
+
+def k3_case(name: str, device="cuda", seed: int = 0):
+    """(widths, mats, narrow, wide, h, wn_max) of one K3_CASES case, as
+    merge_segsum_full_classes takes them (mats on `device`)."""
+    rng = np.random.default_rng(seed)
+    mats, narrow, wide, h, wn_max = {}, [], [], 0, 16
+
+    def add(w, lists, n_docs):
+        mats[w] = k3_matrix(rng, w, lists, n_docs)
+
+    def narrow_class(p_max, t, g, cbits=0, **kw):
+        nonlocal h
+        sel = np.arange(h, h + g)
+        h += g
+        narrow.append(k3_class(rng, mats, p_max, t, g, cbits, sel, **kw))
+
+    if name in ("straddle", "straddle16"):
+        t, w = (4, 2048) if name == "straddle" else (16, 512)
+        add(w, k3_straddle_lists(rng, t, w, 20_000)
+            + k3_lists(rng, 6, w, 20_000), 20_000)
+        wide.append(k3_class(rng, mats, w, t, 3, 0, rows=[
+            [(w, s + 1) for s in range(t)]]
+            + [[(w, int(rng.integers(1, t + 7))) for _ in range(t)]
+               for _ in range(2)]))
+    elif name == "every16":
+        common = np.sort(rng.choice(3000, 24, replace=False))
+        lists = [np.union1d(common, rng.choice(3000, int(rng.integers(0, 40)),
+                                               replace=False))[:64]
+                 for _ in range(16)]
+        add(64, lists, 3000)
+        wide.append(k3_class(rng, mats, 64, 16, 2, 0, rows=[
+            [(64, s + 1) for s in range(16)],
+            [(64, 16 - s) for s in range(16)]]))
+    elif name == "parked":
+        for w in (16, 64, 256):
+            add(w, k3_lists(rng, 5, w, 5000), 5000)
+        wn_max = 4 * 64
+        narrow_class(64, 4, 3, empty=0.3)
+        narrow_class(64, 4, 1, rows=[[(0, 0)] * 4])     # all parked
+        narrow_class(64, 4, 1, rows=[[(256, 1), (64, 2), (0, 0), (16, 3)]])
+        narrow_class(64, 1, 2, rows=[[(16, 1)], [(64, 4)]])
+        wide.append(k3_class(rng, mats, 256, 2, 2, 0, rows=[
+            [(0, 0), (0, 0)], [(256, 2), (64, 1)]]))
+    elif name in ("wide4", "wide8"):
+        t, w = (4, 32768) if name == "wide4" else (8, 16384)
+        add(w, k3_lists(rng, t + 2, w, N_WIDE, fill=(0.6, 1.0)), N_WIDE)
+        wide.append(k3_class(rng, mats, w, t, 2, 0))
+    elif name in ("packed12", "packed14"):
+        cbits = 12 if name == "packed12" else 14
+        n_docs = 2**18 if cbits == 12 else 200_000
+        for w in (64, 1024, 4096):
+            add(w, k3_lists(rng, 6, w, n_docs), n_docs)
+        wn_max = 8 * 1024
+        narrow_class(1024, 8, 3, cbits, empty=0.2)
+        narrow_class(64, 2, 2, cbits)
+        wide.append(k3_class(rng, mats, 4096, 2, 2, cbits))
+    elif name == "mix":
+        for w in (16, 64, 256, 1024, 2048, 4096, 16384):
+            add(w, k3_lists(rng, 6, w, 100_000), 100_000)
+        wn_max = 8 * 2048
+        narrow_class(64, 1, 3)
+        narrow_class(256, 2, 2, empty=0.2)
+        narrow_class(2048, 8, 4, empty=0.1)
+        narrow_class(1024, 4, 2)
+        perm = rng.permutation(h)
+        narrow[:] = [(*c[:3], perm[c[3]], *c[4:]) for c in narrow]
+        wide.append(k3_class(rng, mats, 4096, 1, 3, 0))
+        wide.append(k3_class(rng, mats, 16384, 2, 2, 0))
+        wide.append(k3_class(rng, mats, 16384, 4, 2, 0, empty=0.25))
+    else:
+        raise KeyError(name)
+    widths = tuple(sorted(mats))
+    dev_mats = tuple((torch.from_numpy(mats[w][0]).to(device),
+                      torch.from_numpy(mats[w][1]).to(device))
+                     for w in widths)
+    return widths, dev_mats, narrow, wide, h, wn_max
+
+
+def check_full_classes(name: str, runs: int = 2, seed: int = 0):
+    """The batched K3 on a K3_CASES case against its plain version on the
+    card, bit for bit, `runs` times (block arrival order must not show)."""
+    from tpurag_torch.kernels.bm25_merge import (
+        merge_segsum_full_classes, merge_segsum_full_classes_ref)
+
+    args = k3_case(name, seed=seed)
+    n_val_r, n_doc_r, wide_r = merge_segsum_full_classes_ref(*args)
+    for _ in range(runs):
+        n_val, n_doc, wide = merge_segsum_full_classes(*args)
+        torch.cuda.synchronize()
+        got = [n_val, n_doc, *[x for pair in wide for x in pair]]
+        want = [n_val_r, n_doc_r, *[x for pair in wide_r for x in pair]]
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype, (name, i)
+            assert torch.equal(g, w), f"K3 differs: {name}, output {i}"
+    sums = [n_val_r, *[v for v, _ in wide_r]]
+    assert any((v > 0).any() for v in sums), f"{name}: no sums, vacuous"
 
 
 # K5 at every edge its two bodies have: b in {1, 8, 32} (the wgmma body's
@@ -942,29 +1126,86 @@ def replay_merge(calls) -> dict:
             "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
 
 
-def replay_full(calls) -> dict:
-    """K3 on the main path's own inputs (one request's launching calls):
-    bit-identical to the plain version, and their summed times."""
-    from tpurag_torch.kernels.bm25_merge import (merge_segsum_full,
-                                                 merge_segsum_full_ref)
+def k3_launch_ms(args) -> float:
+    """K3's device time: its launch alone, repeated on one prepared table
+    (the wrapper's host work, the table build and upload, left out)."""
+    from tpurag_torch.kernels.bm25_merge import _k3_prepare, _k3_run
+    from tpurag_torch.kernels.runtime import load_kernels
 
-    ms = plain_ms = nbytes = ops = 0.0
+    fn = load_kernels().tr_full_rows
+    prep = _k3_prepare(*args)
+    return cuda_ms(lambda: _k3_run(fn, prep))
+
+
+def k3_bytes(args) -> tuple[float, int, int]:
+    """(bytes, live lanes, output lanes) K3 must move for these classes:
+    every live lane
+    of every used slot (doc + impact, 8 bytes) read once, every output
+    lane (seg + doc_s, 8 bytes; the narrow buffers' whole width) written
+    once, and the table (8 bytes an entry, as bm25_merge._k3_table builds
+    it: 4 a matrix, 8 a row, 2 a slot, 1 an item)."""
+    from tpurag_torch.kernels.bm25_merge import _K3_CHUNK
+
+    widths, _, narrow, wide, h, wn_max = args
+    live = out = table = 0
+    for p_max, t, _, _, bucketw, _, lv, _ in [*narrow, *wide]:
+        bw = np.asarray(bucketw)
+        live += int(np.where((bw > 0) & (bw <= p_max),
+                             np.minimum(lv, bw), 0).sum())
+        g = bw.shape[0]
+        table += 8 * g + 2 * g * t
+    out = h * wn_max + sum(len(c[4]) * c[0] * c[1] for c in wide)
+    items = h * -(-wn_max // _K3_CHUNK) + sum(
+        len(c[4]) * -(-(c[0] * c[1]) // _K3_CHUNK) for c in wide)
+    table += 4 * len(widths) + items
+    return (live + out) * 8 + table * 8, live, out
+
+
+def replay_full(calls, first=None) -> dict:
+    """K3 on the main path's own inputs (merge_segsum_full_classes calls):
+    bit-identical to its plain version, and the times of the one launch
+    (device time: k3_launch_ms), the whole wrapper call (its host work
+    included), the plain version and (first: tools/k3_anatomy.py's build
+    of K3's first body) that body's launches on the same rows gathered
+    beforehand, and the flow it ran in (gather glue included). The bound
+    is by bytes (k3_bytes); the merge's few compares a lane would take a
+    tenth of that even at the fp32 rate."""
+    from tpurag_torch.kernels.bm25_merge import (
+        merge_segsum_full_classes, merge_segsum_full_classes_ref)
+
+    tool = load_tool("k3_anatomy") if first is not None else None
+    ms = call_ms = plain_ms = first_ms = flow_ms = nbytes = lanes = 0.0
+    out_lanes = 0
     shapes = []
-    for (doc, con), kw in calls:
-        if kw["t"] == 1:
-            continue  # launches nothing
-        seg_k, doc_k = merge_segsum_full(doc, con, **kw)
-        seg_r, doc_r = merge_segsum_full_ref(doc, con, **kw)
+    for args, _ in calls:
+        got = merge_segsum_full_classes(*args)
+        want = merge_segsum_full_classes_ref(*args)
         torch.cuda.synchronize()
-        assert torch.equal(doc_k, doc_r) and torch.equal(seg_k, seg_r), kw
-        ms += cuda_ms(lambda: merge_segsum_full(doc, con, **kw))
-        plain_ms += cuda_ms(lambda: merge_segsum_full_ref(doc, con, **kw))
-        b, w = doc.shape
-        nbytes += b * w * 16  # doc + con in, seg + doc_s out
-        ops += b * (w // 2) * merge_stages(w, kw["p"])
-        shapes.append(f"{b}x{w}")
-    return {"ms": ms, "plain_ms": plain_ms, "shapes": shapes,
-            "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
+        got = [got[0], got[1], *[x for pair in got[2] for x in pair]]
+        want = [want[0], want[1], *[x for pair in want[2] for x in pair]]
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), "K3 replay"
+        assert (want[0] > 0).any(), "no sums at all: the replay is vacuous"
+        ms += k3_launch_ms(args)
+        call_ms += cuda_ms(lambda: merge_segsum_full_classes(*args))
+        plain_ms += cuda_ms(lambda: merge_segsum_full_classes_ref(*args),
+                            iters=3, warmup=1)
+        if tool is not None:
+            first_ms += cuda_ms(tool.first_launches(first, *args))
+            flow_ms += cuda_ms(tool.first_flow(first, *args))
+        b, n, o = k3_bytes(args)
+        nbytes += b
+        lanes += n
+        out_lanes += o
+        widths, _, narrow, wide, h, wn_max = args
+        shapes.append(f"{h} narrow rows ({wn_max} lanes) in {len(narrow)} "
+                      f"classes (" + ", ".join(
+                          f"{len(c[4])}x{c[1]}x{c[0]}" for c in narrow)
+                      + f"), {len(wide)} wide classes (" + ", ".join(
+                          f"{len(c[4])}x{c[1]}x{c[0]}" for c in wide) + ")")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "first_ms": first_ms, "flow_ms": flow_ms, "shapes": shapes,
+            "bound": bound_ms(nbytes, lanes, FP32_OPS_S), "nbytes": nbytes,
+            "lanes": (int(lanes), out_lanes)}
 
 
 def load_tool(name: str):
@@ -1091,13 +1332,14 @@ def drive_wide(device: str, kernels=()) -> dict:
         batches.append((zipf_queries(rng, BATCH_WIDE, VOCAB_WIDE), qv, src))
     hard = [sum(map(is_hard, qs)) for qs, _, _ in batches]
     calls = {n: [] for n in ("dense_topk", "merge_segsum_topk",
-                             "merge_segsum_full", "combine_topk_classes")}
+                             "merge_segsum_full_classes",
+                             "combine_topk_classes")}
     t0 = time.perf_counter()
     with recording(dense_mod, "dense_topk", calls["dense_topk"]), \
             recording(inverted_mod, "merge_segsum_topk",
                       calls["merge_segsum_topk"]), \
-            recording(inverted_mod, "merge_segsum_full",
-                      calls["merge_segsum_full"]), \
+            recording(inverted_mod, "merge_segsum_full_classes",
+                      calls["merge_segsum_full_classes"]), \
             recording(inverted_mod, "combine_topk_classes",
                       calls["combine_topk_classes"]):
         kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
@@ -1527,18 +1769,16 @@ def q8_standalone(kb, card: str) -> dict:
     return out
 
 
-# Each port kernel's device functions (K3's rows up to one block's shared
-# memory and K2' run K2's body: merge_segsum_kernel<PACKED, FULL,
-# GATHER>; K1 has two bodies, dense_scan_sm90_kernel and
+# Each port kernel's device functions (K2' runs K2's body:
+# merge_segsum_kernel<PACKED, GATHER>; K1 has two bodies, dense_scan_sm90_kernel and
 # dense_scan_kernel; K5 two, dense_scan_q8_sm90_kernel<TQ> and
 # dense_scan_kernel<signed char>). dense_merge_kernel serves K1, K5 and K7
 # alike; it counts as K1's.
 PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "dense_scan_sm90_kernel": "K1",
                 "dense_scan_q8_sm90_kernel": "K5",
-                "row_max_kernel": "K3", "tile_merge_kernel": "K3",
-                "global_stage_kernel": "K3", "full_segsum_kernel": "K3",
-                "combine_items_kernel": "K4", "ivf_scan_kernel": "K6",
+                "full_rows_kernel": "K3", "combine_items_kernel": "K4",
+                "ivf_scan_kernel": "K6",
                 "ivf_merge_kernel": "K6", "dense_co_scan_kernel": "K7",
                 "gather_scores_kernel": "K8"}
 
@@ -1551,7 +1791,7 @@ def port_kernel(name: str):
     if m:
         flags = [f.replace("(bool)", "").strip() in ("true", "1")
                  for f in m.group(1).split(",")]
-        return "K3" if flags[1] else "K2'" if flags[2] else "K2"
+        return "K2'" if flags[1] else "K2"
     return PORT_KERNELS.get(name.split("<")[0])
 
 
@@ -1560,7 +1800,8 @@ def device_profile(fn) -> dict:
     synchronize), device-busy ms (the sum of the card's kernel and copy
     times), the number of those device operations, the busiest device
     functions (template arguments kept), each port kernel's device ms
-    and the ms of PyTorch's gathers (vectorized_gather_kernel)."""
+    and the ms of PyTorch's gathers (vectorized_gather_kernel), its
+    elementwise kernels and the copies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1590,8 +1831,13 @@ def device_profile(fn) -> dict:
             port[kern] = port.get(kern, 0.0) + ms
     gather = sum(ms for name, ms in by_name.items()
                  if name.startswith("vectorized_gather_kernel"))
+    elementwise = sum(ms for name, ms in by_name.items()
+                      if "elementwise_kernel" in name)
+    copies = sum(ms for name, ms in by_name.items()
+                 if name.startswith("Memcpy"))
     return {"wall_ms": wall_ms, "busy_ms": busy, "ops": ops, "top": top,
-            "port": dict(sorted(port.items())), "gather_ms": gather}
+            "port": dict(sorted(port.items())), "gather_ms": gather,
+            "elementwise_ms": elementwise, "copy_ms": copies}
 
 
 def hybrid_chain_profile(bench_mod, iters: int = 10, reps: int = 4) -> dict:
@@ -1740,6 +1986,10 @@ def main() -> int:
         f"{k2u_ms:.3f} ms, plain {k2u_plain_ms:.3f} ms ({card})")
 
     # -- 4b. K3 against its plain version ---------------------------------------
+    for name in K3_CASES:
+        before = launch_counts["merge_segsum_full"]
+        check_full_classes(name, runs=2)
+        assert launch_counts["merge_segsum_full"] == before + 2, name
     n_full = 0
     for p in (64, 256, 1024, 2048):  # narrow classes, both layouts
         for t in (2, 8):
@@ -1753,9 +2003,17 @@ def main() -> int:
                 n_full += 1
     _, k3w_ms, k3w_plain_ms = check_full(16, 4, 32768, 0, n_docs=N_WIDE,
                                          timed=True)
-    log(f"[K3] {n_full} shapes (W = 128 .. 131072, packed where it applies) "
-        f"bit-identical to the plain version; b=16 t=4 p=32768 (W=131072): "
-        f"kernel {k3w_ms:.3f} ms, plain {k3w_plain_ms:.3f} ms ({card})")
+    k3_tool = load_tool("k3_anatomy")
+    k3_first = k3_tool.build_first(runtime.BUILD_DIR / "k3_first")
+    k3w_rows = [torch.from_numpy(x).cuda() for x in merge_rows(
+        np.random.default_rng(0), 16, 4, 32768, N_WIDE, flip=False)]
+    k3w_first_ms = cuda_ms(lambda: k3_tool.first_full(k3_first, *k3w_rows,
+                                                      32768, 4, 0))
+    log(f"[K3] {len(K3_CASES)} edge cases ({', '.join(K3_CASES)}), each "
+        f"twice, and {n_full} (doc, con) row shapes (W = 128 .. 131072, "
+        f"packed where it applies) bit-identical to the plain version; b=16 "
+        f"t=4 p=32768 (W=131072): kernel {k3w_ms:.3f} ms, first body "
+        f"{k3w_first_ms:.3f} ms, plain {k3w_plain_ms:.3f} ms ({card})")
 
     # -- 4c. K4 against its plain version ---------------------------------------
     for name in K4_CASES:
@@ -1773,13 +2031,16 @@ def main() -> int:
     k4w_args = combine_rows(64, 16384, 131072, N_WIDE)[:4]
     k4w_first_ms = cuda_ms(lambda: k4_tool.first_combine(k4_first,
                                                          *k4w_args, 8))
+    k4w_bytes, k4w_lanes = k4_live_bytes(
+        *k4w_args[:2], [(*k4w_args[2:], None, None)], 8)
+    k4w_bound = bound_ms(k4w_bytes, k4w_lanes, FP32_OPS_S)
     log(f"[K4] {len(K4_CASES)} edge cases ({', '.join(K4_CASES)}) x k in "
         f"{{1, 8, 40, 200}} and k=1100, each twice, and one class at narrow "
         f"W in {{2048, 16384}} x wide W in {{4096, 32768, 131072}} x k in "
         f"{{8, 40}}: bit-identical to the plain version; g=64 16384+131072 "
         f"lanes k=8: kernel {k4w_ms:.3f} ms, first body {k4w_first_ms:.3f} "
-        f"ms, "
-        f"plain {k4w_plain_ms:.3f} ms ({card})")
+        f"ms, plain {k4w_plain_ms:.3f} ms, bound {k4w_bound[0]:.4f} ms "
+        f"({k4w_bound[1]}: {k4w_bytes / 1e6:.1f} MB live) ({card})")
 
     # -- 5. the 100k slice ------------------------------------------------------
     run = drive_slice("cuda", (dense_topk, merge_segsum_topk))
@@ -1802,10 +2063,12 @@ def main() -> int:
         "a 1M request's K1 launch missed the TMA + wgmma body")
     assert launches["combine_topk"] == 4 and min(wide["hard"]) > 0, (
         "K4 must launch exactly once per 1M request")
+    assert launches["merge_segsum_full"] == 4, (
+        "K3 must launch exactly once per 1M request")
     calls = wide["calls"]
     k1 = replay_dense(calls["dense_topk"])
     k2 = replay_merge(calls["merge_segsum_topk"])
-    k3 = replay_full(calls["merge_segsum_full"])
+    k3 = replay_full(calls["merge_segsum_full_classes"], k3_first)
     k4 = replay_combine(calls["combine_topk_classes"], k4_first)
     del calls, wide["calls"]
     err1 = max(err1, k1["err"], k1["first_err"])
@@ -1820,10 +2083,15 @@ def main() -> int:
         f"({', '.join(k2['shapes'])}) bit-identical to the plain version: "
         f"kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound "
         f"{k2['bound'][0]:.4f} ms ({k2['bound'][1]}) ({card})")
-    log(f"[K3] one request's {len(k3['shapes'])} launches on the 1M path "
-        f"({', '.join(k3['shapes'])}) bit-identical to the plain version: "
-        f"kernel {k3['ms']:.3f} ms, plain {k3['plain_ms']:.3f} ms, bound "
-        f"{k3['bound'][0]:.4f} ms ({k3['bound'][1]}) ({card})")
+    log(f"[K3] one request's launch on the 1M path "
+        f"({'; '.join(k3['shapes'])}) bit-identical to the plain version: "
+        f"kernel {k3['ms']:.3f} ms (the wrapper's whole call "
+        f"{k3['call_ms']:.3f} ms), the first body's per-class launches "
+        f"{k3['first_ms']:.3f} ms (with the gather glue it ran after "
+        f"{k3['flow_ms']:.3f} ms), plain {k3['plain_ms']:.3f} ms, bound "
+        f"{k3['bound'][0]:.4f} ms ({k3['bound'][1]}: "
+        f"{k3['nbytes'] / 1e6:.1f} MB; {k3['lanes'][0]} live lanes read, "
+        f"{k3['lanes'][1]} written) ({card})")
     log(f"[K4] one request's launch on the 1M path "
         f"({'; '.join(k4['shapes'])}) bit-identical to combine_classes_ref: "
         f"kernel {k4['ms']:.3f} ms (the wrapper's whole call "
@@ -1839,9 +2107,12 @@ def main() -> int:
             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
         log("[perf] 1M: device ms by port kernel in the profiled request: "
             + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items())
-            + f"; K4 share {prof['port'].get('K4', 0.0) / prof['busy_ms']:.3f}"
+            + f"; K3 share {prof['port'].get('K3', 0.0) / prof['busy_ms']:.3f}"
+            f", K4 share {prof['port'].get('K4', 0.0) / prof['busy_ms']:.3f}"
             f", vectorized_gather_kernel {prof['gather_ms']:.3f} ms (share "
-            f"{prof['gather_ms'] / prof['busy_ms']:.3f})")
+            f"{prof['gather_ms'] / prof['busy_ms']:.3f}), elementwise "
+            f"{prof['elementwise_ms']:.3f} ms, copies {prof['copy_ms']:.3f} "
+            f"ms")
     else:
         log("[perf] 1M: device busy time not measured (the profiler "
             "recorded no device events)")
@@ -2098,7 +2369,7 @@ def main() -> int:
          "bound_ms": k2["bound"][0], "bound_by": k2["bound"][1],
          "library_ms": None},
         {"name": "merge_segsum_full", "route": "cuda",
-         "source": "tpurag_torch/csrc/bm25_merge.cu",
+         "source": "tpurag_torch/csrc/bm25_full.cu",
          "replaces": "tpurag/kernels/bm25_pallas.py:255",
          "launches": launches["merge_segsum_full"], "max_abs_err": 0.0,
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],

@@ -417,3 +417,205 @@ def test_k4_anatomy_patches_apply(probe):
     assert "combine_items_kernel" in src
     assert (src == tool.patched([])) == (probe == "full")
     assert tool.FIRST_SOURCE.exists()
+
+
+@pytest.mark.parametrize("cbits", [0, 14])
+@pytest.mark.parametrize("t,p", [(2, 256), (4, 64), (8, 64), (16, 32)])
+def test_full_ref_stable_merge_matches_pallas_interpret(t, p, cbits):
+    """K3's plain version (a stable merge by (doc, slot)) against the
+    Pallas kernel in interpret mode at more shapes: docs exact, sums within
+    the rounding of another order."""
+    doc, con = _unflipped_rows(t * p + cbits + 1, 4, t, p, n_docs=300)
+    ws, wd = jax_full(jnp.asarray(doc), jnp.asarray(con), p=p, t=t,
+                      cbits=cbits, interpret=True)
+    gs, gd = merge_segsum_full_ref(torch.from_numpy(doc),
+                                   torch.from_numpy(con), p, t, cbits)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-6)
+    assert (gs.numpy() > 0).sum() > 20
+
+
+@pytest.mark.parametrize("t,p", [(2, 256), (16, 16), (16, 64)])
+def test_full_ref_stable_merge_matches_xla_merge_tree(t, p):
+    doc, con = _unflipped_rows(t * p + 3, 5, t, p, n_docs=300)
+    ws, wd = merge_segsum_full_xla(jnp.asarray(doc), jnp.asarray(con), p=p,
+                                   t=t)
+    gs, gd = merge_segsum_full_ref(torch.from_numpy(doc),
+                                   torch.from_numpy(con), p, t)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_allclose(gs.numpy(), np.asarray(ws), rtol=1e-6)
+
+
+@pytest.mark.parametrize("cbits", [0, 12])
+def test_full_ref_order_is_doc_then_slot(cbits):
+    """The order K3 and its plain version share, spelled out: live lanes
+    by (doc, slot), parked lanes after them, and each doc's sum at its last
+    lane, adding its contributions from the highest slot down in float32."""
+    t, p = 8, 32
+    doc, con = _unflipped_rows(9, 3, t, p, n_docs=120)
+    gs, gd = merge_segsum_full_ref(torch.from_numpy(doc),
+                                   torch.from_numpy(con), p, t, cbits)
+    for r in range(doc.shape[0]):
+        c = con[r].astype(np.float32)
+        if cbits:
+            qmax = (1 << cbits) - 1
+            safe = np.float32(max(c.max(), np.float32(1e-30)))
+            q = np.clip(np.rint(c / safe * np.float32(qmax)), 0, qmax)
+            c = q.astype(np.float32) * (safe / np.float32(qmax))
+        lanes = sorted((int(d), s) for s in range(t)
+                       for d in doc[r, s * p:(s + 1) * p] if d < _BIG)
+        assert gd[r, :len(lanes)].tolist() == [d for d, _ in lanes]
+        assert (gd[r, len(lanes):] == _BIG).all()
+        assert (gs[r, len(lanes):] == NEG_INF).all()
+        lane_of = {(int(d), s): s * p + i for s in range(t)
+                   for i, d in enumerate(doc[r, s * p:(s + 1) * p])}
+        for i, (d, s) in enumerate(lanes):
+            if i + 1 < len(lanes) and lanes[i + 1][0] == d:
+                assert gs[r, i] == NEG_INF
+                continue
+            slots = [x for dd, x in lanes if dd == d]
+            total = np.float32(c[lane_of[(d, slots[-1])]])
+            for x in slots[-2::-1]:
+                total = np.float32(total + c[lane_of[(d, x)]])
+            assert gs[r, i].item() == total, (r, i)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.K3_CASES))
+def test_full_classes_plain_matches_assemble(name):
+    """K3's descriptor form (on CPU tensors its plain version, which reads
+    each slot's live lanes as the kernel does) against the flow it
+    replaces: index/inverted._assemble's gather of whole bucket rows and
+    merge_segsum_full_ref per class, narrow rows scattered at sel. The
+    cases hold empty slots, a slot wider than p_max, t = 1, w < p_max, an
+    all-parked row, W = 131072 and cbits 12 and 14."""
+    from tpurag_torch.index.inverted import _assemble
+
+    widths, mats, narrow, wide, h, wn_max = chip_smoke.k3_case(name,
+                                                              device="cpu")
+    before = launch_counts["merge_segsum_full"]
+    n_val, n_doc, wides = bm25_merge.merge_segsum_full_classes(
+        widths, mats, narrow, wide, h, wn_max)
+    assert launch_counts["merge_segsum_full"] == before
+    want_v = torch.full((h, wn_max), NEG_INF)
+    want_d = torch.full((h, wn_max), _BIG, dtype=torch.int32)
+    for i, (p_max, t, cbits, sel, bucketw, rowid, _, idf) in enumerate(
+            [*narrow, *wide]):
+        doc, con = _assemble(torch.as_tensor(bucketw), torch.as_tensor(rowid),
+                             torch.as_tensor(idf), list(mats), p_max, t,
+                             list(widths))
+        g = doc.shape[0]
+        seg, doc_s = merge_segsum_full_ref(doc.reshape(g, -1),
+                                           con.reshape(g, -1), p_max, t,
+                                           cbits)
+        if i < len(narrow):
+            want_v[torch.as_tensor(sel), :t * p_max] = seg
+            want_d[torch.as_tensor(sel), :t * p_max] = doc_s
+        else:
+            got = wides[i - len(narrow)]
+            assert torch.equal(got[0], seg) and torch.equal(got[1], doc_s)
+    assert torch.equal(n_val, want_v) and torch.equal(n_doc, want_d)
+    assert any((x > 0).any() for x in [n_val, *[w for w, _ in wides]])
+
+
+def _decode_k3_table(prep):
+    """(mats, rows, slots, items) of a prepared K3 table."""
+    tab = prep["table"].numpy()
+    n_m, n_r, n_s = prep["n_mats"], prep["n_rows"], prep["n_slots"]
+    mats = tab[:4 * n_m].reshape(n_m, 4)
+    rows = tab[4 * n_m:4 * n_m + 8 * n_r].reshape(n_r, 8)
+    at = 4 * n_m + 8 * n_r
+    slots = tab[at:at + 2 * n_s].view(np.int32).reshape(n_s, 4)
+    items = tab[at + 2 * n_s:]
+    assert len(items) == prep["n_items"]
+    return mats, rows, slots, items
+
+
+def test_k3_table_items_cover_every_lane():
+    """The work table: ceil(lanes written / chunk) items a row, each (row,
+    chunk) once and in order; slots decode to (matrix, row, live lanes,
+    idf), empty ones zeroed; the straddling doc (lanes 4094..4097) has its
+    end lane in its row's second item, its other lanes in the first (the
+    look-back the kernel reads); a narrow row's items past its live lanes
+    are in the table (they write the parked tail)."""
+    C = bm25_merge._K3_CHUNK
+    args = chip_smoke.k3_case("straddle", device="cpu")
+    prep = bm25_merge._k3_prepare(*args)
+    mats, rows, slots, items = _decode_k3_table(prep)
+    widths, dev_mats, _, wide, _, _ = args
+    assert [tuple(m[:3]) for m in mats] == [
+        (d.data_ptr(), i.data_ptr(), w) for w, (d, i) in zip(widths, dev_mats)]
+    w_out = rows[:, 3]
+    np.testing.assert_array_equal(
+        items, np.concatenate([(r << 32) | np.arange(-(-w // C))
+                               for r, w in enumerate(w_out)]))
+    _, t, _, _, bucketw, rowid, live, idf = wide[0]
+    np.testing.assert_array_equal(rows[:, 4], t)
+    np.testing.assert_array_equal(rows[:, 6], np.arange(len(rows)) * t)
+    np.testing.assert_array_equal(slots[:, 1].reshape(-1, t), rowid)
+    np.testing.assert_array_equal(slots[:, 2].reshape(-1, t), live)
+    np.testing.assert_array_equal(slots[:, 3].view(np.float32).reshape(-1, t),
+                                  idf)
+    seg, doc_s = bm25_merge.merge_segsum_full_classes_ref(*args)[2][0]
+    d = int(doc_s[0, 4094])
+    assert (doc_s[0, 4094:4098] == d).all() and doc_s[0, 4098] != d
+    assert (seg[0, 4094:4097] == NEG_INF).all() and seg[0, 4097] > 0
+    assert (4097 // C, 4094 // C) == (1, 0) and ((0 << 32) | 1) in items
+
+    args = chip_smoke.k3_case("parked", device="cpu")
+    _, _, slots, _ = _decode_k3_table(bm25_merge._k3_prepare(*args))
+    empty = slots[:, 2] == 0
+    assert empty.any() and (slots[empty][:, :2] == 0).all()
+
+    args = chip_smoke.k3_case("mix", device="cpu")
+    prep = bm25_merge._k3_prepare(*args)
+    _, rows, _, items = _decode_k3_table(prep)
+    _, _, narrow, _, h, wn_max = args
+    assert (rows[:h, 3] == wn_max).all()
+    for r in range(h):  # every narrow row has wn_max / C items
+        assert all(((r << 32) | j) in items for j in range(wn_max // C))
+    n_val, n_doc, _ = bm25_merge.merge_segsum_full_classes_ref(*args)
+    live = (n_doc < _BIG).sum(1)
+    past = live <= C  # rows whose items 1.. lie past their live lanes
+    assert past.sum() >= 3 and (n_doc[past, C:] == _BIG).all()
+    assert (n_val[past, C:] == NEG_INF).all()
+
+
+def test_wide_flow_makes_one_k3_call_and_matches_jax(monkeypatch):
+    """A batch of hard queries (narrow and several wide classes) makes one
+    merge_segsum_full_classes call per segment scored, and answers as the
+    JAX package does."""
+    from tpurag_torch.index import inverted
+
+    calls = []
+    real = inverted.merge_segsum_full_classes
+
+    def rec(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(inverted, "merge_segsum_full_classes", rec)
+    jidx, tidx = _pair(_corpus())
+    queries = ["common rare", "half unique", "common half rare unique",
+               "common", "common half", "half alt", "common alt rare"]
+    _assert_same_search(jidx, tidx, queries)
+    assert len(calls) == 1
+    _, _, narrow, wide, h, _ = calls[0]
+    assert h == len(queries) and narrow and len(wide) >= 2
+
+
+@pytest.mark.parametrize("probe", ["full", "search_only", "no_merge",
+                                   "no_sums", "chunk2048", "chunk8192"])
+def test_k3_anatomy_patches_apply(probe):
+    """tools/k3_anatomy.py cuts parts out of K3 by textual patches; each
+    anchor must be in the kernel's source exactly once."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k3_anatomy.py"
+    spec = importlib.util.spec_from_file_location("k3_anatomy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.patched(tool.PROBES[probe])
+    assert "full_rows_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")
+    assert tool.FIRST_SOURCE.exists()

@@ -109,6 +109,31 @@ def test_full_merge_kernel_matches_plain(cuda, t, p, cbits):
     assert launch_counts["merge_segsum_full"] == before + 1
 
 
+@pytest.mark.parametrize("name", list(chip_smoke.K3_CASES))
+def test_full_classes_kernel_matches_plain(cuda, name):
+    """The batched K3 at its edges (chip_smoke.K3_CASES: a doc whose t
+    lanes straddle an item boundary at t = 4 and 16, docs in every slot,
+    an all-parked row, empty slots, a slot wider than p_max, t = 1, W =
+    131072 at t = 4 and 8, cbits 12 and 14, a class mix in one launch), bit
+    for bit, run twice."""
+    before = launch_counts["merge_segsum_full"]
+    chip_smoke.check_full_classes(name, runs=2)
+    assert launch_counts["merge_segsum_full"] == before + 2
+
+
+def test_full_classes_kernel_refuses_too_many_slots(cuda):
+    from tpurag_torch.kernels.bm25_merge import (K3_MAX_T,
+                                                 merge_segsum_full_classes)
+
+    widths, mats, _, wide, _, _ = chip_smoke.k3_case("every16")
+    t = 2 * K3_MAX_T
+    cls = (64, t, 0, None, np.zeros((1, t), np.int32),
+           np.zeros((1, t), np.int32), np.zeros((1, t), np.int32),
+           np.ones((1, t), np.float32))
+    with pytest.raises(ValueError, match="t <= 512"):
+        merge_segsum_full_classes(widths, mats, [], [cls], 0, 0)
+
+
 @pytest.mark.parametrize("wn,ww,k", [
     (64, 128, 8), (2048, 4096, 40), (16384, 65536, 8), (65536, 32768, 8),
 ])

@@ -193,46 +193,6 @@ __device__ __forceinline__ int lower_bound(const int* doc, int n, int x) {
   return lo;
 }
 
-// Where src[x0, x0 + n) (4-byte elements) goes in shared memory: element
-// x at dst[h + x - x0], h the offset of src + x0 in its 16-byte line, so
-// the aligned middle [mid0, mid1) of dst's indices is one bulk copy and
-// [h, mid0) and [mid1, h + n) are plain loads.
-struct Staged {
-  int h, mid0, mid1, end;
-};
-
-__device__ __forceinline__ Staged staging(const void* src, int n) {
-  Staged s;
-  s.h = (int)(((uintptr_t)src >> 2) & 3);
-  s.end = s.h + n;
-  s.mid0 = (s.h + 3) & ~3;
-  s.mid1 = s.end & ~3;
-  if (s.mid1 <= s.mid0) s.mid0 = s.mid1 = s.end;  // no aligned middle
-  return s;
-}
-
-__device__ __forceinline__ uint32_t middle_bytes(const Staged& s) {
-  return (uint32_t)(s.mid1 - s.mid0) * 4;
-}
-
-// One thread: the bulk copy of the aligned middle, counted on bar.
-__device__ __forceinline__ void bulk_middle(void* dst, const void* src,
-                                            const Staged& s, uint64_t* bar) {
-  if (s.mid1 > s.mid0)
-    sm90::bulk_load((char*)dst + 4 * s.mid0,
-                    (const char*)src + 4 * (s.mid0 - s.h), middle_bytes(s),
-                    bar);
-}
-
-// Every thread: the unaligned head and tail by plain loads.
-__device__ __forceinline__ void plain_edges(int* dst, const int* src,
-                                            const Staged& s) {
-  for (int o = s.h + threadIdx.x; o < s.mid0; o += THREADS)
-    dst[o] = src[o - s.h];
-  for (int o = s.mid1 + threadIdx.x; o < s.end; o += THREADS)
-    dst[o] = src[o - s.h];
-}
-
 __global__ void __launch_bounds__(THREADS)
     combine_items_kernel(const float* __restrict__ n_val,
                          const int* __restrict__ n_doc, long long wn_stride,
@@ -269,7 +229,8 @@ __global__ void __launch_bounds__(THREADS)
   Key kth = 0;
 
   for (int e = tid; e < WARPS * k; e += THREADS) lists[e] = 0;
-  const Staged sw_v = staging(wv, na), sw_d = staging(wd, na);
+  const sm90::Staged sw_v = sm90::staging(wv, na),
+                     sw_d = sm90::staging(wd, na);
   if (tid == 0) {
     sm90::mbar_init(&bars[0], 1);
     sm90::mbar_init(&bars[1], 1);
@@ -278,17 +239,18 @@ __global__ void __launch_bounds__(THREADS)
     s_lo = j == 0 ? INT_MIN : wd[0];
     s_hi = a0 + na < ww ? wd[na] : BIG;
     if (s_lo < s_hi) {
-      sm90::mbar_expect_tx(&bars[0], middle_bytes(sw_v) + middle_bytes(sw_d));
-      bulk_middle(swv, wv, sw_v, &bars[0]);
-      bulk_middle(swd, wd, sw_d, &bars[0]);
+      sm90::mbar_expect_tx(
+          &bars[0], sm90::middle_bytes(sw_v) + sm90::middle_bytes(sw_d));
+      sm90::bulk_middle(swv, wv, sw_v, &bars[0]);
+      sm90::bulk_middle(swd, wd, sw_d, &bars[0]);
     }
   }
   __syncthreads();
   const int lo = s_lo, hi = s_hi;
   if (lo < hi) {
-    plain_edges(reinterpret_cast<int*>(swv), reinterpret_cast<const int*>(wv),
-                sw_v);
-    plain_edges(swd, wd, sw_d);
+    sm90::plain_edges(reinterpret_cast<int*>(swv),
+                      reinterpret_cast<const int*>(wv), sw_v, tid, THREADS);
+    sm90::plain_edges(swd, wd, sw_d, tid, THREADS);
     // The narrow lanes of the item's docs: [b0, b1) of the own width.
     if (warp == 0) {
       const int b0 = j == 0 ? 0 : warp_lower_bound(nd, wn, lo);
@@ -305,19 +267,21 @@ __global__ void __launch_bounds__(THREADS)
     for (int tile = 0; tile < n_tiles; ++tile) {
       const int t0 = b0 + tile * NTILE;
       const int nb = max(0, min(NTILE, b1 - t0));
-      const Staged sn_v = staging(nv + t0, nb), sn_d = staging(nd + t0, nb);
+      const sm90::Staged sn_v = sm90::staging(nv + t0, nb),
+                         sn_d = sm90::staging(nd + t0, nb);
       if (tid == 0) {
         // The shared tile was last read before the previous barrier.
         sm90::fence_proxy_async();
-        sm90::mbar_expect_tx(&bars[1],
-                             middle_bytes(sn_v) + middle_bytes(sn_d));
-        bulk_middle(snv, nv + t0, sn_v, &bars[1]);
-        bulk_middle(snd, nd + t0, sn_d, &bars[1]);
+        sm90::mbar_expect_tx(
+            &bars[1], sm90::middle_bytes(sn_v) + sm90::middle_bytes(sn_d));
+        sm90::bulk_middle(snv, nv + t0, sn_v, &bars[1]);
+        sm90::bulk_middle(snd, nd + t0, sn_d, &bars[1]);
         s_tile_hi = tile + 1 < n_tiles ? nd[t0 + nb] : INT_MAX;
       }
-      plain_edges(reinterpret_cast<int*>(snv),
-                  reinterpret_cast<const int*>(nv + t0), sn_v);
-      plain_edges(snd, nd + t0, sn_d);
+      sm90::plain_edges(reinterpret_cast<int*>(snv),
+                        reinterpret_cast<const int*>(nv + t0), sn_v, tid,
+                        THREADS);
+      sm90::plain_edges(snd, nd + t0, sn_d, tid, THREADS);
       sm90::mbar_wait(&bars[0], 0);
       sm90::mbar_wait(&bars[1], tile & 1);
       __syncthreads();

@@ -1,45 +1,29 @@
-// K2 and K3: BM25 bitonic merge + segment sum for Hopper (sm_90a).
+// K2: BM25 bitonic merge + segment sum + top-k for Hopper (sm_90a).
 //
-// K2 replaces the Pallas kernel tpurag/kernels/bm25_pallas.py:
-// merge_segsum_topk (body _merge_segsum_kernel with out_full=False); K3
-// replaces merge_segsum_full (the same body with out_full=True). Same
+// Replaces the Pallas kernel tpurag/kernels/bm25_pallas.py:
+// merge_segsum_topk (body _merge_segsum_kernel with out_full=False). Same
 // contract, both layouts: per candidate row, a bitonic merge of T
 // doc-sorted P-blocks (odd blocks flipped, so the network starts at 2P), a
 // T-window shift-add segment sum (a doc appears at most once per term),
-// then K2 takes a k-pass top-k (scores <= 0 come out as (NEG_INF, -1))
-// and K3 writes the full rows: seg (each doc's sum at its segment-end
-// lane, NEG_INF elsewhere) and doc_s (monotone, parked lanes at 2^30).
-// cbits > 0 packs doc << cbits | quantized contribution into one int32
-// key per lane.
+// then a k-pass top-k (scores <= 0 come out as (NEG_INF, -1)). cbits > 0
+// packs doc << cbits | quantized contribution into one int32 key per lane.
+// (K3, the full-row form, is csrc/bm25_full.cu.)
 //
-// What bounds them on this card: the network is ~40 compare-exchange
-// stages at W = 16384 (~50 at W = 131072), each a pass over the whole
-// row, so the row has to stay on chip where it can: 16384 lanes are
-// 128 KB unpacked (doc + contribution), 64 KB packed, inside one block's
-// 227 KB of shared memory. Device memory sees one read of the row and
-// (K2) a (k,) write or (K3) a full (seg, doc_s) write.
+// What bounds it on this card: the network is ~40 compare-exchange
+// stages at W = 16384, each a pass over the whole row, so the row has to
+// stay on chip: 16384 lanes are 128 KB unpacked (doc + contribution), 64
+// KB packed, inside one block's 227 KB of shared memory. Device memory
+// sees one read of the row and a (k,) write.
 //
-// Design, rows of up to TILE = 16384 lanes (all of K2, and K3's narrow
-// rows): one block per row, up to 1024 threads, the row in dynamic shared
+// Design: one block per row, up to 1024 threads, the row in dynamic shared
 // memory (cudaFuncSetAttribute past 48 KB). Packing happens in the kernel
-// (a block max, then the key per lane), so the row is read once; K3 also
-// flips the odd blocks as it loads them. Each stage is one pass of
-// compare-exchanges over W/2 lane pairs followed by __syncthreads; the
-// exchange rule is the Pallas kernel's, so equal keys never move and the
-// sums below add in the same order (results are bit-identical to the
-// plain version). K2 keeps the segment sums of each thread's <= 16 lanes
-// in registers, and its top-k is k block-wide argmax passes over them
-// that stop at the first score <= 0.
-//
-// K3 rows wider than a tile (the wide terms' rows, up to 131072 lanes at
-// 1M documents) run the same network in pieces over scratch rows in device
-// memory: one launch loads every tile (flipping, packing with the row max
-// of a first small launch) and runs the levels that fit in a tile; each
-// later level runs its strides >= TILE as one device-memory launch per
-// stride (one compare-exchange per thread) and finishes its strides
-// < TILE in one shared-memory launch per tile; a last launch writes the
-// segment sums. Every stage applies the same exchange to the same array,
-// so the result is the one-block network's, bit for bit.
+// (a block max, then the key per lane), so the row is read once. Each
+// stage is one pass of compare-exchanges over W/2 lane pairs followed by
+// __syncthreads; the exchange rule is the Pallas kernel's, so equal keys
+// never move and the sums below add in the same order (results are
+// bit-identical to the plain version). The segment sums of each thread's
+// <= 16 lanes stay in registers, and the top-k is k block-wide argmax
+// passes over them that stop at the first score <= 0.
 //
 // K2' replaces tpurag/kernels/bm25_pallas.py:bm25_topk_fused: the CSR
 // window gather of tpurag/kernels/bm25.py:_gather_candidates, the odd-term
@@ -66,7 +50,6 @@ constexpr int PAD_KEY = 0x7fffffff;    // packed pad key
 constexpr int MAX_LANES_PER_THREAD = 16;
 constexpr int MAX_THREADS = 1024;
 constexpr int TILE = MAX_LANES_PER_THREAD * MAX_THREADS;  // 16384 lanes
-constexpr int STAGE_THREADS = 256;
 
 // CSR postings and the (B, T) query windows into them (K2').
 struct Csr {
@@ -91,15 +74,15 @@ __device__ __forceinline__ int pack_key(int d, float c, float safe,
 }
 
 // Input lane of merged lane i when odd p-blocks load flipped.
-__device__ __forceinline__ int src_lane(int i, int p, bool flip) {
-  return (flip && (i & p)) ? (i ^ (p - 1)) : i;
+__device__ __forceinline__ int src_lane(int i, int p) {
+  return (i & p) ? (i ^ (p - 1)) : i;
 }
 
 // Lane i of row `row`'s flipped candidate row, gathered from the CSR
 // postings: term j = src / p at window offset o = src % p.
 __device__ __forceinline__ void gather_lane(const Csr& c, size_t row, int i,
                                             int p, int& d, float& v) {
-  const int src = src_lane(i, p, true);
+  const int src = src_lane(i, p);
   const int o = src & (p - 1);
   const size_t slot = row * c.T + src / p;
   const int lim = c.nnz > p ? c.nnz - p : 0;
@@ -137,17 +120,15 @@ __device__ __forceinline__ int pair_lo(int pi, int s) {
   return ((pi & ~(s - 1)) << 1) | (pi & (s - 1));
 }
 
-// Levels kk = kk_lo .. kk_hi of the network over n lanes in shared memory
-// whose first lane is lane `base` of the row; each level runs its strides
-// from min(kk, n) / 2 down to 1.
+// Levels kk = kk_lo .. n of the network over n lanes in shared memory;
+// each level runs its strides from kk / 2 down to 1.
 template <bool PACKED>
-__device__ void smem_network(int* key, float* cs, int n, int base, int kk_lo,
-                             int kk_hi) {
-  for (int kk = kk_lo; kk <= kk_hi; kk <<= 1) {
-    for (int s = (kk < n ? kk : n) >> 1; s >= 1; s >>= 1) {
+__device__ void smem_network(int* key, float* cs, int n, int kk_lo) {
+  for (int kk = kk_lo; kk <= n; kk <<= 1) {
+    for (int s = kk >> 1; s >= 1; s >>= 1) {
       for (int pi = threadIdx.x; pi < (n >> 1); pi += blockDim.x) {
         const int lo = pair_lo(pi, s);
-        exchange<PACKED>(key, cs, lo, lo + s, base + lo, kk);
+        exchange<PACKED>(key, cs, lo, lo + s, lo, kk);
       }
       __syncthreads();
     }
@@ -195,12 +176,11 @@ __device__ float row_max(const float* crow, int W, float* red_v, int* red_i,
   return m;
 }
 
-// One block per row, the whole row in shared memory. FULL (K3): odd
-// p-blocks load flipped and out_v/out_i receive the (B, W) seg / doc_s
-// rows; else (K2) the input arrives flipped and out_v/out_i receive the
-// (B, k) top-k. GATHER (K2'): the row is gathered from `csr` (doc and con
-// unused), odd terms flipped as they load.
-template <bool PACKED, bool FULL, bool GATHER>
+// One block per row, the whole row in shared memory; the input arrives
+// flipped and out_v/out_i receive the (B, k) top-k. GATHER (K2'): the row
+// is gathered from `csr` (doc and con unused), odd terms flipped as they
+// load.
+template <bool PACKED, bool GATHER>
 __global__ void __launch_bounds__(MAX_THREADS)
     merge_segsum_kernel(const int* __restrict__ doc,
                         const float* __restrict__ con, Csr csr, int W, int p,
@@ -255,33 +235,19 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
   } else if (PACKED) {
     const float safe = fmaxf(row_max(crow, W, red_v, red_i, red_p), 1e-30f);
-    for (int i = tid; i < W; i += nt) {
-      const int src = src_lane(i, p, FULL);
-      key[i] = pack_key(drow[src], crow[src], safe, cbits);
-    }
+    for (int i = tid; i < W; i += nt)
+      key[i] = pack_key(drow[i], crow[i], safe, cbits);
     scale = __fdiv_rn(safe, (float)((1 << cbits) - 1));
     big = PAD_KEY >> cbits;
   } else {
     for (int i = tid; i < W; i += nt) {
-      const int src = src_lane(i, p, FULL);
-      key[i] = drow[src];
-      cs[i] = crow[src];
+      key[i] = drow[i];
+      cs[i] = crow[i];
     }
   }
   __syncthreads();
 
-  smem_network<PACKED>(key, cs, W, 0, 2 * p, W);
-
-  if (FULL) {
-    float* seg = out_v + row * W;
-    int* doc_s = out_i + row * W;
-    for (int i = tid; i < W; i += nt) {
-      seg[i] = seg_at<PACKED>(key, cs, i, W, t, cbits, scale, big);
-      const int d = doc_of<PACKED>(key, i, cbits);
-      doc_s[i] = d < big ? d : BIG;
-    }
-    return;
-  }
+  smem_network<PACKED>(key, cs, W, 2 * p);
 
   // Segment sums at segment-end lanes; lane i = tid + r * nt lives in
   // seg[r].
@@ -338,107 +304,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// -- K3 rows wider than a tile ---------------------------------------------
-
-__global__ void __launch_bounds__(MAX_THREADS)
-    row_max_kernel(const float* __restrict__ con, int W, float* rowmax) {
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int red_p[32];
-  const float m = row_max(con + (size_t)blockIdx.x * W, W, red_v, red_i,
-                          red_p);
-  if (threadIdx.x == 0) rowmax[blockIdx.x] = m;
-}
-
-// Tile blockIdx.x of row blockIdx.y in shared memory: load it (FROM_INPUT:
-// from doc/con with odd p-blocks flipped, packed with the row max; else
-// from the scratch rows), run levels kk_lo .. kk_hi, store it back to the
-// scratch rows.
-template <bool PACKED, bool FROM_INPUT>
-__global__ void __launch_bounds__(MAX_THREADS)
-    tile_merge_kernel(const int* __restrict__ doc,
-                      const float* __restrict__ con,
-                      const float* __restrict__ rowmax, int W, int p,
-                      int cbits, int kk_lo, int kk_hi, int* key_rows,
-                      float* con_rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int* key = reinterpret_cast<int*>(smem);
-  float* cs = reinterpret_cast<float*>(key + TILE);
-  const size_t row = blockIdx.y;
-  const int base = blockIdx.x * TILE;
-  int* krow = key_rows + row * W + base;
-  float* crow_s = PACKED ? nullptr : con_rows + row * W + base;
-  if (FROM_INPUT) {
-    const int* drow = doc + row * W;
-    const float* crow = con + row * W;
-    const float safe = PACKED ? fmaxf(rowmax[row], 1e-30f) : 0.f;
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-      const int src = src_lane(base + i, p, true);
-      if (PACKED) {
-        key[i] = pack_key(drow[src], crow[src], safe, cbits);
-      } else {
-        key[i] = drow[src];
-        cs[i] = crow[src];
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-      key[i] = krow[i];
-      if (!PACKED) cs[i] = crow_s[i];
-    }
-  }
-  __syncthreads();
-  smem_network<PACKED>(key, cs, TILE, base, kk_lo, kk_hi);
-  for (int i = threadIdx.x; i < TILE; i += blockDim.x) {
-    krow[i] = key[i];
-    if (!PACKED) crow_s[i] = cs[i];
-  }
-}
-
-// One stage (level kk, stride s >= TILE) over whole rows in device memory.
-template <bool PACKED>
-__global__ void __launch_bounds__(STAGE_THREADS)
-    global_stage_kernel(int* key_rows, float* con_rows, int W, int kk,
-                        int s) {
-  const int pi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pi >= (W >> 1)) return;
-  const size_t row = blockIdx.y;
-  const int lo = pair_lo(pi, s);
-  exchange<PACKED>(key_rows + row * W,
-                   PACKED ? nullptr : con_rows + row * W, lo, lo + s, lo, kk);
-}
-
-// The full (seg, doc_s) rows from merged scratch rows.
-template <bool PACKED>
-__global__ void __launch_bounds__(STAGE_THREADS)
-    full_segsum_kernel(const int* __restrict__ key_rows,
-                       const float* __restrict__ con_rows,
-                       const float* __restrict__ rowmax, int W, int t,
-                       int cbits, float* seg, int* doc_s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W) return;
-  const size_t row = blockIdx.y;
-  const int* key = key_rows + row * W;
-  const float* cs = PACKED ? nullptr : con_rows + row * W;
-  float scale = 0.f;
-  int big = BIG;
-  if (PACKED) {
-    scale = __fdiv_rn(fmaxf(rowmax[row], 1e-30f),
-                      (float)((1 << cbits) - 1));
-    big = PAD_KEY >> cbits;
-  }
-  seg[row * W + i] = seg_at<PACKED>(key, cs, i, W, t, cbits, scale, big);
-  const int d = doc_of<PACKED>(key, i, cbits);
-  doc_s[row * W + i] = d < big ? d : BIG;
-}
-
 template <typename F>
 cudaError_t allow_smem(F* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-template <bool PACKED, bool FULL, bool GATHER = false>
+template <bool PACKED, bool GATHER = false>
 cudaError_t launch_rows(const int* doc, const float* con, int B, int W, int p,
                         int t, int cbits, int k, float* out_v, int* out_i,
                         cudaStream_t st, Csr csr = Csr{}) {
@@ -447,47 +319,10 @@ cudaError_t launch_rows(const int* doc, const float* con, int B, int W, int p,
   if ((W + nt - 1) / nt > MAX_LANES_PER_THREAD) return cudaErrorInvalidValue;
   const size_t smem = (size_t)W * (PACKED ? sizeof(int)
                                           : sizeof(int) + sizeof(float));
-  cudaError_t err =
-      allow_smem(merge_segsum_kernel<PACKED, FULL, GATHER>, smem);
+  cudaError_t err = allow_smem(merge_segsum_kernel<PACKED, GATHER>, smem);
   if (err != cudaSuccess) return err;
-  merge_segsum_kernel<PACKED, FULL, GATHER><<<B, nt, smem, st>>>(
+  merge_segsum_kernel<PACKED, GATHER><<<B, nt, smem, st>>>(
       doc, con, csr, W, p, t, cbits, k, out_v, out_i);
-  return cudaGetLastError();
-}
-
-template <bool PACKED>
-cudaError_t launch_wide(const int* doc, const float* con, int B, int W, int p,
-                        int t, int cbits, float* seg, int* doc_s,
-                        int* key_rows, float* con_rows, float* rowmax,
-                        cudaStream_t st) {
-  const size_t smem = (size_t)TILE * (PACKED ? sizeof(int)
-                                             : sizeof(int) + sizeof(float));
-  cudaError_t err = allow_smem(tile_merge_kernel<PACKED, true>, smem);
-  if (err == cudaSuccess)
-    err = allow_smem(tile_merge_kernel<PACKED, false>, smem);
-  if (err != cudaSuccess) return err;
-  if (PACKED) {
-    row_max_kernel<<<B, MAX_THREADS, 0, st>>>(con, W, rowmax);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  const dim3 tiles(W / TILE, B);
-  tile_merge_kernel<PACKED, true><<<tiles, MAX_THREADS, smem, st>>>(
-      doc, con, rowmax, W, p, cbits, 2 * p, TILE, key_rows, con_rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 pairs((W / 2 + STAGE_THREADS - 1) / STAGE_THREADS, B);
-  for (int kk = 2 * p > 2 * TILE ? 2 * p : 2 * TILE; kk <= W; kk <<= 1) {
-    for (int s = kk >> 1; s >= TILE; s >>= 1) {
-      global_stage_kernel<PACKED><<<pairs, STAGE_THREADS, 0, st>>>(
-          key_rows, con_rows, W, kk, s);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-    tile_merge_kernel<PACKED, false><<<tiles, MAX_THREADS, smem, st>>>(
-        nullptr, nullptr, rowmax, W, p, cbits, kk, kk, key_rows, con_rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  const dim3 lanes((W + STAGE_THREADS - 1) / STAGE_THREADS, B);
-  full_segsum_kernel<PACKED><<<lanes, STAGE_THREADS, 0, st>>>(
-      key_rows, con_rows, rowmax, W, t, cbits, seg, doc_s);
   return cudaGetLastError();
 }
 
@@ -497,10 +332,10 @@ extern "C" int tr_merge_segsum_topk(const int* doc, const float* con, int B,
                                     int W, int p, int t, int cbits, int k,
                                     float* out_v, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(cbits ? launch_rows<true, false>(doc, con, B, W, p, t, cbits,
-                                                k, out_v, out_i, st)
-                     : launch_rows<false, false>(doc, con, B, W, p, t, cbits,
-                                                 k, out_v, out_i, st));
+  return (int)(cbits ? launch_rows<true>(doc, con, B, W, p, t, cbits, k,
+                                          out_v, out_i, st)
+                     : launch_rows<false>(doc, con, B, W, p, t, cbits, k,
+                                           out_v, out_i, st));
 }
 
 // K2'. starts / lens (B, T) int32 and idf (B, T) float32 windows into the
@@ -518,33 +353,10 @@ extern "C" int tr_bm25_topk_fused(const int* starts, const int* lens,
       p > nnz)
     return (int)cudaErrorInvalidValue;
   const Csr csr{starts, lens, idf, post_doc, post_impact, nnz, n_valid, T};
-  return (int)(cbits ? launch_rows<true, false, true>(
-                           nullptr, nullptr, B, W, p, T, cbits, k, out_v,
-                           out_i, st, csr)
-                     : launch_rows<false, false, true>(
-                           nullptr, nullptr, B, W, p, T, cbits, k, out_v,
-                           out_i, st, csr));
-}
-
-// K3. Rows of W > TILE lanes need scratch: key_rows (B, W) int32,
-// con_rows (B, W) float32 (unpacked) and rowmax (B,) float32 (packed).
-extern "C" int tr_merge_segsum_full(const int* doc, const float* con, int B,
-                                    int W, int p, int t, int cbits,
-                                    float* seg, int* doc_s, int* key_rows,
-                                    float* con_rows, float* rowmax,
-                                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (t < 2 || W != t * p) return (int)cudaErrorInvalidValue;
-  if (W <= TILE)
-    return (int)(cbits ? launch_rows<true, true>(doc, con, B, W, p, t, cbits,
-                                                 0, seg, doc_s, st)
-                       : launch_rows<false, true>(doc, con, B, W, p, t, cbits,
-                                                  0, seg, doc_s, st));
-  if (W % TILE) return (int)cudaErrorInvalidValue;
-  return (int)(cbits ? launch_wide<true>(doc, con, B, W, p, t, cbits, seg,
-                                         doc_s, key_rows, con_rows, rowmax,
-                                         st)
-                     : launch_wide<false>(doc, con, B, W, p, t, cbits, seg,
-                                          doc_s, key_rows, con_rows, rowmax,
-                                          st));
+  return (int)(cbits ? launch_rows<true, true>(nullptr, nullptr, B, W, p, T,
+                                                cbits, k, out_v, out_i, st,
+                                                csr)
+                     : launch_rows<false, true>(nullptr, nullptr, B, W, p, T,
+                                                cbits, k, out_v, out_i, st,
+                                                csr));
 }

@@ -1,9 +1,10 @@
 // Hopper pieces shared by the TMA + wgmma bodies of K1
 // (dense_topk_sm90.cu, bf16) and K5 (dense_topk_q8_sm90.cu, int8) and by
-// K4's bulk-copy staging (bm25_combine.cu): the mbarrier, TMA and bulk
-// copy helpers, the wgmma descriptor of a 128-byte-swizzled
-// K-major box and the fences around asynchronous products, and the
-// tensor-map encoder, fetched at run time so the library needs no -lcuda.
+// the bulk-copy staging of K3 (bm25_full.cu) and K4 (bm25_combine.cu): the
+// mbarrier, TMA and bulk copy helpers, the staging of an unaligned range,
+// the wgmma descriptor of a 128-byte-swizzled K-major box and the fences
+// around asynchronous products, and the tensor-map encoder, fetched at run
+// time so the library needs no -lcuda.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
@@ -82,6 +83,45 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Where src[x0, x0 + n) (4-byte elements) goes in shared memory: element
+// x at dst[h + x - x0], h the offset of src + x0 in its 16-byte line, so
+// the aligned middle [mid0, mid1) of dst's indices is one bulk copy and
+// [h, mid0) and [mid1, h + n) are plain loads.
+struct Staged {
+  int h, mid0, mid1, end;
+};
+
+__device__ __forceinline__ Staged staging(const void* src, int n) {
+  Staged s;
+  s.h = (int)(((uintptr_t)src >> 2) & 3);
+  s.end = s.h + n;
+  s.mid0 = (s.h + 3) & ~3;
+  s.mid1 = s.end & ~3;
+  if (s.mid1 <= s.mid0) s.mid0 = s.mid1 = s.end;  // no aligned middle
+  return s;
+}
+
+__device__ __forceinline__ uint32_t middle_bytes(const Staged& s) {
+  return (uint32_t)(s.mid1 - s.mid0) * 4;
+}
+
+// One thread: the bulk copy of the aligned middle, counted on bar.
+__device__ __forceinline__ void bulk_middle(void* dst, const void* src,
+                                            const Staged& s, uint64_t* bar) {
+  if (s.mid1 > s.mid0)
+    bulk_load((char*)dst + 4 * s.mid0, (const char*)src + 4 * (s.mid0 - s.h),
+              middle_bytes(s), bar);
+}
+
+// Threads first, first + step, ...: the unaligned head and tail by plain
+// loads.
+__device__ __forceinline__ void plain_edges(int* dst, const int* src,
+                                            const Staged& s, int first,
+                                            int step) {
+  for (int o = s.h + first; o < s.mid0; o += step) dst[o] = src[o - s.h];
+  for (int o = s.mid1 + first; o < s.end; o += step) dst[o] = src[o - s.h];
 }
 
 // Make freshly initialised barriers visible to the copy engine.

@@ -16,17 +16,20 @@ Device layout (same as the JAX package):
   kernels/bm25.segsum_topk_candidates;
 - queries holding a term whose bucket is wider than ``wide_term_width``
   split additively: their narrow terms and their wide terms each merge
-  into full doc-sorted rows of per-doc partial sums, one class at a time
-  (kernels/bm25_merge.merge_segsum_full, K3), and one call joins every
-  wide class with its members' narrow rows into an exact top-k
-  (kernels/bm25_join.combine_topk_classes, K4, one launch per search);
+  into full doc-sorted rows of per-doc partial sums, every class of the
+  search in one call that reads the bucket rows itself
+  (kernels/bm25_merge.merge_segsum_full_classes, K3, one launch per
+  search), and one call joins every wide class with its members' narrow
+  rows into an exact top-k (kernels/bm25_join.combine_topk_classes, K4,
+  one launch per search);
 - ``BM25Config.head_m`` > 0 keeps only a term's head_m highest-impact
   postings (approximate; exact_scoring=True turns it off).
 
 Mutability: adds after the first build land in a TAIL segment; deletes
 tombstone ids (candidate overfetch + filter); compact() rebuilds.
-Class inputs reach the card as non-blocking copies from pinned memory,
-so a search queues every class's work without waiting on the device.
+The wide path's class tables reach the card as one non-blocking copy
+from pinned memory per kernel, so a search queues its work without
+waiting on the device.
 
 save/load use the JAX package's ``.npz`` format.
 """
@@ -48,7 +51,7 @@ from tpurag_torch.ingest.tokenizer import tokenize, tokenize_query
 from tpurag_torch.kernels.bm25 import rank_compat, segsum_topk_candidates
 from tpurag_torch.kernels.bm25_join import combine_topk_classes
 from tpurag_torch.kernels.bm25_merge import (flip_odd_blocks, merge_ok,
-                                             merge_segsum_full,
+                                             merge_segsum_full_classes,
                                              merge_segsum_topk)
 from tpurag_torch.kernels.runtime import NEG_INF, round_up
 from tpurag_torch.kernels.topk import merge_topk
@@ -141,45 +144,32 @@ def _class_rows(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
                      [w for w, _ in pairs])
 
 
-def _class_full_rows(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
-                     layout: "_Layout", p_max: int, t: int, cbits: int):
-    """One class -> full doc-sorted segsummed rows (seg, doc_s), each
-    (g, t*p_max): exact per-doc partial sums at segment-end lanes (K3)."""
-    doc, con = _class_rows(bucketw, rowid, idf, layout, p_max, t)
-    g = bucketw.shape[0]
-    w = t * p_max
-    return merge_segsum_full(doc.reshape(g, w).contiguous(),
-                             con.reshape(g, w).contiguous(), p=p_max, t=t,
-                             cbits=full_cbits(w, t, cbits))
-
-
 def wide_flow(n_classes, w_classes, h: int, kk: int, wn_max: int,
               layout: "_Layout", cbits: int):
     """Device flow for queries holding wide terms.
 
-    n_classes / w_classes: lists of (p_max, t, sel, bucketw, rowid, idf),
-    sel a (g,) host int array of positions in the h-row output and the
-    bucketw/rowid/idf (g, t) host arrays of the class's members. Narrow
-    classes fill an (h, wn_max) full-row buffer; each wide class merges
-    its own full rows, and one combine_topk_classes call (one K4 launch)
-    joins every wide class with its members' narrow rows, each member
-    reading only its own narrow class's width. Returns (h, kk) scores /
-    ids."""
-    dev = layout.device
-    n_val = torch.full((h, wn_max), NEG_INF, dtype=torch.float32, device=dev)
-    n_doc = torch.full((h, wn_max), _BIG, dtype=torch.int32, device=dev)
+    n_classes / w_classes: lists of (p_max, t, sel, bucketw, rowid, live,
+    idf), sel a (g,) host int array of positions in the h-row output and
+    the bucketw/rowid/live/idf (g, t) host arrays of the class's members.
+    One merge_segsum_full_classes call (one K3 launch) merges every class
+    straight from the bucket matrices: the narrow classes into one
+    (h, wn_max) full-row buffer, each wide class into rows of its own; one
+    combine_topk_classes call (one K4 launch) joins every wide class with
+    its members' narrow rows, each member reading only its own narrow
+    class's width. Returns (h, kk) scores / ids."""
+    def spec(cls):
+        p_max, t, sel, bucketw, rowid, live, idf = cls
+        return (p_max, t, full_cbits(t * p_max, t, cbits), sel, bucketw,
+                rowid, live, idf)
+
+    n_val, n_doc, wides = merge_segsum_full_classes(
+        layout.widths, layout.mats, [spec(c) for c in n_classes],
+        [spec(c) for c in w_classes], h, wn_max)
     n_width = np.zeros(h, np.int64)
-    for p_max, t, sel, bw, ri, idf in n_classes:
-        seg, doc_s = _class_full_rows(bw, ri, idf, layout, p_max, t, cbits)
-        rows = torch.as_tensor(sel, device=dev)
-        n_val[rows, :seg.shape[1]] = seg
-        n_doc[rows, :seg.shape[1]] = doc_s
-        n_width[sel] = seg.shape[1]
-    classes = []
-    for p_max, t, sel, bw, ri, idf in w_classes:
-        w_seg, w_doc = _class_full_rows(bw, ri, idf, layout, p_max, t, cbits)
-        classes.append((w_seg.contiguous(), w_doc.contiguous(), sel,
-                        n_width[sel]))
+    for p_max, t, sel, *_ in n_classes:
+        n_width[sel] = p_max * t
+    classes = [(w_seg, w_doc, cls[2], n_width[cls[2]])
+               for (w_seg, w_doc), cls in zip(wides, w_classes)]
     # One doc spans at most max narrow t + wide t lanes across the two
     # merged sides: the window of the plain version's segment sum.
     window = max(2, max((c[1] for c in n_classes), default=0)
@@ -195,6 +185,7 @@ class _Layout:
     mats: tuple               # ((doc, imp) tensor pairs) aligned with widths
     term_bucket: np.ndarray   # (V,) int32 bucket width, 0 = term absent
     term_row: np.ndarray      # (V,) int32 row index (0 = pad row)
+    term_len: np.ndarray      # (V,) int32 postings in the term's row
     device: torch.device
     nnz: int = 0
 
@@ -310,6 +301,7 @@ class InvertedIndex:
         head_m = self.config.head_m if not self.config.exact_scoring else 0
         term_bucket = np.zeros(v, np.int32)
         term_row = np.zeros(v, np.int32)
+        term_len = np.zeros(v, np.int32)
         by_width: dict[int, list[int]] = {}
         nnz = 0
         for tid in range(v):
@@ -321,6 +313,7 @@ class InvertedIndex:
             w = _next_pow2(max(eff, 16))
             term_bucket[tid] = w
             term_row[tid] = len(by_width.setdefault(w, []))
+            term_len[tid] = min(cnt, w)
             by_width[w].append(tid)
             nnz += cnt
         k1 = self.config.k1
@@ -373,6 +366,7 @@ class InvertedIndex:
                          torch.from_numpy(imp_mat).to(self.device)))
         return _Layout(widths=widths, mats=tuple(mats),
                        term_bucket=term_bucket, term_row=term_row,
+                       term_len=term_len,
                        device=self.device, nnz=nnz)
 
     def compact(self) -> None:
@@ -540,14 +534,14 @@ class InvertedIndex:
     def _score_wide(self, narrow_rows: list[list[int]],
                     wide_rows: list[list[int]], kk: int, layout: _Layout):
         """Queries with wide terms. Narrow terms give full doc-sorted
-        segsummed rows (one K3 launch per narrow class), wide terms the
-        same per (own width, term count) wide class, and one
+        segsummed rows per narrow class, wide terms the same per (own
+        width, term count) wide class, all in one K3 launch, and one
         combine_topk_classes call adds the partial sums exactly into the
         top-kk. Each term runs at its own bucket width: a df-20k term does
         not pad the query's narrow terms to 32768 lanes."""
         h = len(narrow_rows)
         ladder = tuple(sorted(self.config.width_ladder or ()))
-        tb, tr = layout.term_bucket, layout.term_row
+        tb, tr, tl = layout.term_bucket, layout.term_row, layout.term_len
         cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
         df_live = max(self.n_docs, 1)
 
@@ -568,14 +562,16 @@ class InvertedIndex:
                 g = len(members)
                 bucketw = np.zeros((g, t_max), np.int32)
                 rowid = np.zeros((g, t_max), np.int32)
+                live = np.zeros((g, t_max), np.int32)
                 idf = np.zeros((g, t_max), np.float32)
                 for gi, hi in enumerate(members):
                     for ti, tid in enumerate(rows_of[hi]):
                         bucketw[gi, ti] = tb[tid]
                         rowid[gi, ti] = tr[tid] + 1  # +1: row 0 = pad
+                        live[gi, ti] = tl[tid]
                         idf[gi, ti] = idf_of(tid)
                 out.append((p_max, t_max, np.asarray(members, np.int64),
-                             bucketw, rowid, idf))
+                             bucketw, rowid, live, idf))
             return out
 
         # Narrow side: full rows scattered into one (h, wn_max) buffer so

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpurag_torch.kernels.bm25 import bm25_topk_segsum, gather_candidates
@@ -59,6 +60,10 @@ _PAD_KEY = 2**31 - 1
 # the same boundary (PALLAS_MAX_MERGE_LANES), so both packages route the
 # same queries; wider rows take kernels/bm25.segsum_topk_candidates.
 MAX_MERGE_LANES = 1 << 14
+# K3 (csrc/bm25_full.cu): output lanes per work item, and the most term
+# slots one full row merges.
+_K3_CHUNK = 4096
+K3_MAX_T = 512
 
 
 def merge_ok(w: int) -> bool:
@@ -116,6 +121,16 @@ def _merge_rows(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
     else:
         doc_s, con_s = arrays
         big = _BIG
+    return _window_sums(doc_s, con_s, t, big), doc_s, big
+
+
+def _window_sums(doc_s: torch.Tensor, con_s: torch.Tensor, t: int, big: int):
+    """Each doc's sum at its segment-end lane of a merged (B, W) row (a
+    doc spans at most t lanes), NEG_INF elsewhere and at parked lanes
+    (doc_s >= big): the end lane's contribution, then the t - 1 lanes
+    before it that hold the same doc, nearest first."""
+    w = doc_s.shape[1]
+    lane = torch.arange(w, device=doc_s.device)
     nxt = torch.roll(doc_s, -1, dims=1)
     is_end = (doc_s != nxt) | (lane == w - 1)
     total = con_s
@@ -123,8 +138,7 @@ def _merge_rows(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
         dj = torch.roll(doc_s, j, dims=1)
         cj = torch.roll(con_s, j, dims=1)
         total = total + torch.where((dj == doc_s) & (lane >= j), cj, 0.0)
-    seg = torch.where(is_end & (doc_s < big), total, NEG_INF)
-    return seg, doc_s, big
+    return torch.where(is_end & (doc_s < big), total, NEG_INF)
 
 
 def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
@@ -147,13 +161,23 @@ def flip_odd_blocks(x: torch.Tensor, p: int, t: int) -> torch.Tensor:
 
 def merge_segsum_full_ref(doc: torch.Tensor, con: torch.Tensor, p: int,
                           t: int = 1, cbits: int = 0):
-    """Plain version of K3 (same network and sums as the kernel): the
-    (seg, doc_s) full rows of ``merge_segsum_full``."""
+    """Plain version of K3: the (seg, doc_s) full rows of
+    ``merge_segsum_full``. The t P-blocks (each plain doc-ascending) merge
+    by (doc, slot), a stable sort of the concatenated row by doc with the
+    parked lanes (doc >= big: 2^30, or (2^31 - 1) >> cbits when packed) at
+    the end; each doc's sum is the t-window sum at its segment-end lane (its
+    last slot's contribution first, then the earlier slots'). Packed rows
+    (cbits > 0) sum the quantised contributions of ``_pack``."""
     if t == 1:
         return torch.where(doc < _BIG, con, NEG_INF), doc
-    seg, doc_s, big = _merge_rows(flip_odd_blocks(doc, p, t),
-                                  flip_odd_blocks(con, p, t), p, t, cbits)
-    return seg, torch.where(doc_s < big, doc_s, _BIG).to(torch.int32)
+    big = _PAD_KEY >> cbits if cbits else _BIG
+    if cbits:
+        key, scale = _pack(doc, con, cbits)
+        con = (key & ((1 << cbits) - 1)).float() * scale
+    keys = torch.where(doc < big, doc, big)
+    keys, order = torch.sort(keys, dim=1, stable=True)
+    seg = _window_sums(keys, torch.gather(con, 1, order), t, big)
+    return seg, torch.where(keys < big, keys, _BIG).to(torch.int32)
 
 
 def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
@@ -202,9 +226,9 @@ def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
     """(seg, doc_s), each (B, W = t*p): the doc-sorted merged row and each
     doc's exact partial sum at its segment-end lane (NEG_INF elsewhere);
     doc_s is monotone with parked lanes at 2^30. Input P-blocks plain
-    ascending. CPU tensors take the plain version; CUDA tensors launch
-    K3 (csrc/bm25_merge.cu; any W: rows past one block's shared memory
-    merge through device-memory scratch) or raise; t == 1 launches
+    ascending (parked lanes at their ends). CPU tensors take the plain
+    version; CUDA tensors launch K3 (csrc/bm25_full.cu) with one class
+    whose slots are the P-blocks at scale 1.0, or raise; t == 1 launches
     nothing."""
     if doc.device.type == "cpu":
         return merge_segsum_full_ref(doc, con, p, t, cbits)
@@ -220,37 +244,241 @@ def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
     if not (doc.is_contiguous() and con.is_contiguous()):
         raise ValueError("merge_segsum_full: inputs must be contiguous")
     b, w = doc.shape
-    if p < 1 or p & (p - 1) or t & (t - 1) or w != t * p or w >= 2**30:
+    if p < 1 or p & (p - 1) or t & (t - 1) or w != t * p:
         raise ValueError(f"merge_segsum_full: W={w}, p={p}, t={t} must be "
                          "powers of two with W = t*p")
-    if not 0 <= cbits <= 30 or b > 65535:
-        raise ValueError(f"merge_segsum_full: bad cbits={cbits} or B={b}")
-    dev = doc.device
-    seg = torch.empty((b, w), dtype=torch.float32, device=dev)
-    doc_s = torch.empty((b, w), dtype=torch.int32, device=dev)
     if b == 0:
-        return seg, doc_s
-    key_rows = con_rows = rowmax = None
-    if not merge_ok(w):  # scratch rows for the device-memory merge
-        key_rows = torch.empty((b, w), dtype=torch.int32, device=dev)
-        if cbits:
-            rowmax = torch.empty((b,), dtype=torch.float32, device=dev)
-        else:
-            con_rows = torch.empty((b, w), dtype=torch.float32, device=dev)
-    fn = load_kernels().tr_merge_segsum_full
+        return (torch.empty((0, w), dtype=torch.float32, device=doc.device),
+                torch.empty((0, w), dtype=torch.int32, device=doc.device))
+    _, _, (full,) = merge_segsum_full_classes(*block_classes(doc, con, p, t,
+                                                              cbits))
+    return full
+
+
+def block_classes(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
+                  cbits: int = 0):
+    """merge_segsum_full_classes's arguments for (B, t*p) rows of P-blocks:
+    one wide class whose slot s of row i is block s of row i (a matrix row
+    of p lanes, all of them given: the kernel finds where each block's
+    parked lanes start), at scale 1.0."""
+    b = doc.shape[0]
+    blocks = np.arange(b * t, dtype=np.int32).reshape(b, t)
+    spec = (p, t, cbits, None, np.full((b, t), p, np.int32), blocks,
+            np.full((b, t), p, np.int32), np.ones((b, t), np.float32))
+    return ((p,), ((doc.view(b * t, p), con.view(b * t, p)),), [], [spec], 0,
+            0)
+
+
+def slot_rows(widths, mats, bucketw, rowid, live, idf, p_max: int, t: int):
+    """The (g, t * p_max) (doc, con) rows a class's slots describe: slot s
+    of row i holds lanes [0, live) of row rowid of the bucket matrix of
+    width bucketw (empty when bucketw is 0 or above p_max), each lane
+    contributing idf * impact; the other lanes park at doc 2^30 with
+    contribution 0. bucketw / rowid / live / idf: (g, t) host arrays."""
+    dev = mats[0][0].device
+    g = bucketw.shape[0]
+    doc = torch.full((g, t, p_max), _BIG, dtype=torch.int32, device=dev)
+    con = torch.zeros((g, t, p_max), dtype=torch.float32, device=dev)
+    rowid, live, idf = (torch.as_tensor(np.asarray(x), device=dev)
+                        for x in (rowid, live, idf))
+    for w, (doc_mat, imp_mat) in zip(widths, mats):
+        if w > p_max or not (bucketw == w).any():
+            continue
+        mask = torch.as_tensor(bucketw == w, device=dev)
+        rows = torch.where(mask, rowid, 0).long()
+        keep = mask[:, :, None] & (torch.arange(w, device=dev)
+                                   < live[:, :, None])
+        doc[:, :, :w] = torch.where(keep, doc_mat[rows], doc[:, :, :w])
+        con[:, :, :w] = torch.where(keep, idf[:, :, None] * imp_mat[rows],
+                                    con[:, :, :w])
+    return doc.reshape(g, t * p_max), con.reshape(g, t * p_max)
+
+
+def merge_segsum_full_classes_ref(widths, mats, narrow, wide, h: int,
+                                  wn_max: int):
+    """Plain version of the batched K3: each class's rows from its slots
+    (``slot_rows``), merged by ``merge_segsum_full_ref``; narrow classes
+    scattered into the (h, wn_max) buffers (lanes past a class's width
+    parked), wide classes returned as their own rows."""
+    dev = mats[0][0].device
+    n_val = torch.full((h, wn_max), NEG_INF, dtype=torch.float32, device=dev)
+    n_doc = torch.full((h, wn_max), _BIG, dtype=torch.int32, device=dev)
+
+    def rows_of(cls):
+        p_max, t, cbits, _, bucketw, rowid, live, idf = cls
+        doc, con = slot_rows(widths, mats, np.asarray(bucketw), rowid, live,
+                             idf, p_max, t)
+        return merge_segsum_full_ref(doc, con, p_max, t, cbits)
+
+    for cls in narrow:
+        seg, doc_s = rows_of(cls)
+        sel = torch.as_tensor(np.asarray(cls[3], np.int64), device=dev)
+        n_val[sel, :seg.shape[1]] = seg
+        n_doc[sel, :seg.shape[1]] = doc_s
+    return n_val, n_doc, [rows_of(cls) for cls in wide]
+
+
+def _k3_prepare(widths, mats, narrow, wide, h: int, wn_max: int,
+                chunk: int = _K3_CHUNK) -> dict:
+    """Everything one K3 launch needs: its outputs (the (h, wn_max) narrow
+    buffers and one (g, W) pair per wide class) and its table, uploaded to
+    the card in one copy from pinned memory (no stream sync on the host);
+    table None when there is no row to write.
+
+    The table is one int64 array, as csrc/bm25_full.cu reads it: per bucket
+    matrix a Mat (doc and impact pointers, width), per output row a Row
+    (seg and doc_s pointers, W, lanes written, t, cbits, first slot), per
+    (row, slot) a Slot (matrix, matrix row, live lanes, idf; all 0 but idf
+    for an empty slot), then the items (row << 32 | output chunk),
+    ceil(lanes written / chunk) a row."""
+    dev = mats[0][0].device
+    classes = [*narrow, *wide]
+    n_narrow = len(narrow)
+    p_max, t, cbits = (np.array([c[i] for c in classes], np.int64)
+                       for i in range(3))
+    g = np.array([len(c[4]) for c in classes], np.int64)
+    w = t * p_max
+    sizes = (g * w)[n_narrow:]
+    n_val = torch.empty((h, wn_max), dtype=torch.float32, device=dev)
+    n_doc = torch.empty((h, wn_max), dtype=torch.int32, device=dev)
+    flat_v = torch.empty(int(sizes.sum()), dtype=torch.float32, device=dev)
+    flat_d = torch.empty(int(sizes.sum()), dtype=torch.int32, device=dev)
+    offs = np.cumsum(sizes) - sizes
+    prep = {"n_val": n_val, "n_doc": n_doc, "table": None,
+            "wide": [(flat_v[o:o + n].view(-1, ww),
+                      flat_d[o:o + n].view(-1, ww))
+                     for o, n, ww in zip(offs.tolist(), sizes.tolist(),
+                                         w[n_narrow:].tolist())]}
+    n_rows = int(g.sum())
+    if n_rows == 0:
+        return prep
+
+    # Rows: narrow ones at their sel rows of the (h, wn_max) buffers, wide
+    # ones in their class's block of the flat outputs.
+    cls = np.repeat(np.arange(len(classes)), g)
+    narrow_row = cls < n_narrow
+    elem = np.empty(n_rows, np.int64)
+    if n_narrow:
+        elem[narrow_row] = np.concatenate(
+            [np.asarray(c[3], np.int64).reshape(-1) for c in narrow]) * wn_max
+    wc = cls[~narrow_row]
+    elem[~narrow_row] = (offs[wc - n_narrow] + w[wc] * (
+        np.arange(n_rows - narrow_row.sum()) - np.repeat(
+            np.cumsum(g[n_narrow:]) - g[n_narrow:], g[n_narrow:])))
+    rows = np.zeros((n_rows, 8), np.int64)
+    rows[:, 0] = np.where(narrow_row, n_val.data_ptr(),
+                          flat_v.data_ptr()) + 4 * elem
+    rows[:, 1] = np.where(narrow_row, n_doc.data_ptr(),
+                          flat_d.data_ptr()) + 4 * elem
+    rows[:, 2] = w[cls]
+    rows[:, 3] = np.where(narrow_row, wn_max, w[cls])
+    rows[:, 4] = t[cls]
+    rows[:, 5] = cbits[cls]
+    rows[:, 6] = np.cumsum(t[cls]) - t[cls]
+
+    # Slots: a slot is empty when its width is 0 or above its class's p_max.
+    def flat(i, dtype):
+        return np.concatenate([np.asarray(c[i], dtype).reshape(-1)
+                               for c in classes])
+
+    bw = flat(4, np.int64)
+    used = (bw > 0) & (bw <= np.repeat(p_max[cls], t[cls]))
+    warr = np.asarray(widths, np.int64)
+    order = np.argsort(warr)
+    widx = order[np.clip(np.searchsorted(warr[order], bw), 0, len(warr) - 1)]
+    if (used & (warr[widx] != bw)).any():
+        raise ValueError(f"merge_segsum_full: slot width "
+                         f"{int(bw[used & (warr[widx] != bw)][0])} has no "
+                         "bucket matrix")
+    slots = np.zeros((len(bw), 4), np.int32)
+    slots[:, 0] = np.where(used, widx, 0)
+    slots[:, 1] = np.where(used, flat(5, np.int64), 0)
+    slots[:, 2] = np.where(used, np.clip(flat(6, np.int64), 0, bw), 0)
+    slots[:, 3] = flat(7, np.float32).view(np.int32)
+
+    mat_tab = np.zeros((len(mats), 4), np.int64)
+    mat_tab[:, 0] = [d.data_ptr() for d, _ in mats]
+    mat_tab[:, 1] = [i.data_ptr() for _, i in mats]
+    mat_tab[:, 2] = widths
+    per_row = -(-rows[:, 3] // chunk)
+    items = ((np.repeat(np.arange(n_rows, dtype=np.int64), per_row) << 32)
+             | (np.arange(int(per_row.sum()))
+                - np.repeat(np.cumsum(per_row) - per_row, per_row)))
+    table = torch.from_numpy(np.concatenate(
+        [mat_tab.reshape(-1), rows.reshape(-1),
+         slots.view(np.int64).reshape(-1), items]))
+    if dev.type == "cuda":
+        table = table.pin_memory().to(dev, non_blocking=True)
+    prep.update(table=table, n_mats=len(mats), n_rows=n_rows,
+                n_slots=len(bw), n_items=len(items), t_max=int(t.max()))
+    return prep
+
+
+def _k3_run(fn, prep: dict) -> int:
+    """Launch K3 through the C entry `fn` (tr_full_rows or a copy of it)
+    on a prepared launch; returns its cudaError_t."""
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    err = fn(doc.data_ptr(), con.data_ptr(), b, w, p, t, cbits,
-             seg.data_ptr(), doc_s.data_ptr(),
-             *(0 if x is None else x.data_ptr()
-               for x in (key_rows, con_rows, rowmax)),
-             cuda_stream(dev))
-    check_launch(err, "merge_segsum_full")
-    launch_counts["merge_segsum_full"] += 1
-    return seg, doc_s
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn(prep["table"].data_ptr(), prep["n_mats"], prep["n_rows"],
+              prep["n_slots"], prep["n_items"], prep["t_max"],
+              cuda_stream(prep["table"].device))
+
+
+def merge_segsum_full_classes(widths, mats, narrow, wide, h: int,
+                              wn_max: int):
+    """K3 for one search: the full rows of every class at once.
+
+    widths / mats: the bucket matrices, one (doc int32, impact float32)
+    pair of (rows, width) tensors per width. narrow / wide: the classes,
+    each (p_max, t, cbits, sel, bucketw, rowid, live, idf) with (g, t) host
+    arrays per slot (bucket width, 0 = empty; matrix row; live lanes, <=
+    the width; idf); a narrow class's rows go into the (h, wn_max)
+    (n_val, n_doc) buffers at its `sel` rows, lanes past its width parked;
+    a wide class gets (g, t * p_max) rows of its own (`sel` unused). Every
+    narrow buffer row belongs to one narrow class. Returns (n_val, n_doc,
+    [(w_seg, w_doc) per wide class]).
+
+    CPU tensors take ``merge_segsum_full_classes_ref``; CUDA tensors
+    launch K3 once (csrc/bm25_full.cu), or raise. Its limits: at most
+    K3_MAX_T = 512 slots a row and W = t * p_max < 2^30."""
+    dev = mats[0][0].device
+    if dev.type == "cpu":
+        return merge_segsum_full_classes_ref(widths, mats, narrow, wide, h,
+                                             wn_max)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_segsum_full: unsupported device {dev}")
+    if any(d.device != dev or i.device != dev for d, i in mats):
+        raise ValueError("merge_segsum_full: matrices on different devices")
+    if any(d.dtype != torch.int32 or i.dtype != torch.float32
+           or d.dim() != 2 or d.shape != i.shape or d.shape[1] != w
+           or not (d.is_contiguous() and i.is_contiguous())
+           for w, (d, i) in zip(widths, mats)):
+        raise TypeError("merge_segsum_full: each matrix pair must be "
+                        "contiguous (rows, width) int32 docs and float32 "
+                        "impacts")
+    for p_max, t, cbits, _, bucketw, *_ in [*narrow, *wide]:
+        if not 1 <= t <= K3_MAX_T or t * p_max >= _BIG:
+            raise ValueError(f"merge_segsum_full: a class of t={t} slots x "
+                             f"p_max={p_max} lanes; K3 takes t <= "
+                             f"{K3_MAX_T} and W = t * p_max < 2^30")
+        if not 0 <= cbits <= 30 or np.shape(bucketw)[1:] != (t,):
+            raise ValueError(f"merge_segsum_full: bad cbits={cbits} or slot "
+                             f"arrays of shape {np.shape(bucketw)}")
+    if any(t * p_max > wn_max for p_max, t, *_ in narrow):
+        raise ValueError(f"merge_segsum_full: a narrow class wider than the "
+                         f"narrow buffers' {wn_max} lanes")
+    sel = np.concatenate([np.asarray(c[3], np.int64).reshape(-1)
+                          for c in narrow] or [np.zeros(0, np.int64)])
+    if (len(sel) != h or ((sel < 0) | (sel >= h)).any()
+            or (h and np.bincount(sel, minlength=h).max() != 1)):
+        raise ValueError("merge_segsum_full: every narrow buffer row must "
+                         "belong to exactly one narrow class")
+    prep = _k3_prepare(widths, mats, narrow, wide, h, wn_max)
+    if prep["table"] is not None:
+        check_launch(_k3_run(load_kernels().tr_full_rows, prep),
+                     "merge_segsum_full")
+        launch_counts["merge_segsum_full"] += 1
+    return prep["n_val"], prep["n_doc"], prep["wide"]
 
 
 def bm25_topk_fused_ref(starts, lens, idf, post_doc, post_impact,
