@@ -72,16 +72,19 @@ non-zero before the result line):
      version bit for bit at t in {1, 2, 4, 8} x p_max in {16, 64, 256,
      2048}, packed and not (clamped starts, empty windows, docs >=
      n_valid, k past the row), and K7 dense_topk_co against dense_topk_ref
-     within TOL (tests/test_dense.py's shapes, k=200, fp32, b=4160); the
+     within TOL: its TMA + wgmma body at K7_SHAPES (each twice),
+     tests/test_dense.py's shapes, b=4160, and its first body on fp32,
+     D=1352, a misaligned corpus and as named; the
      five runnable configs (exact_dense, hybrid, memory_fusion, graph,
      ivf_latency) at full size through run_all(device="cuda"), every
      launch count reset just before each and read just after, with
      exact_dense recall 1.0 and ivf_latency recall@10 >= 0.95; one hybrid
      step's K2' call replayed bit for bit; hybrid_step at the driver's
-     example shapes on the card against the CPU; K7 timed beside both K1
-     bodies and torch.topk on the dense inputs of hybrid (512 x 100k),
-     graph (256 x 1M), ivf_latency (8 x 2.1M) and phase 7's 1M request
-     (512 x 1M).
+     example shapes on the card against the CPU; K7 (its Hopper body as
+     routed, and its first body) timed
+     beside both K1 bodies and torch.topk on the dense inputs of hybrid
+     (512 x 100k), graph (256 x 1M), ivf_latency (8 x 2.1M) and phase 7's
+     1M request (512 x 1M), every routed K7 call through the Hopper body.
 
 The second-to-last stdout line is the kernel table as JSON, one row per
 kernel: launches over the 1M phases' requests (K1-K4 phase 7, K5, K6, K8
@@ -360,27 +363,54 @@ def check_fused(b: int, t: int, p_max: int, cbits: int, k: int = 8,
     assert (i_k[:, 0] >= 0).any(), "no hits at all: the case is vacuous"
 
 
+# K7's Hopper body at every edge it has: b in {1, 8, 32, 33, 130, 512,
+# 4160} (form (i) up to 32 resident queries; from 33 on form (ii), whose
+# second half-box is then all zero fill), n_valid in {0, 5, 63, mid-tile},
+# an odd count of 64-row tiles, D in {64, 1024, 1152, 1344} (1344: the
+# widest form (ii) tile, its ring at the least depth), k in {1, 8, 40,
+# 200, 600} (k > n_valid: empty slots); the lists in shared memory, and
+# in device memory (form (i) at k = 600; form (ii) at b = 4160 and at D =
+# 1152 and 1344 past a few entries per query); form (ii)'s ring at 3, 4
+# and 5 stages.
+K7_SHAPES = [(1, 1000, 1000, DIM, 8), (8, 5000, 4777, 64, 40),
+             (8, 1000, 999, DIM, 600),
+             (32, 20_480, 20_000, DIM, 200), (8, 40_000, 39_999, DIM, 40),
+             (1, 1000, 63, 64, 200), (33, 3000, 2900, DIM, 8),
+             (130, 200, 5, DIM, 1), (130, 300, 0, 64, 8),
+             (130, 320, 300, DIM, 40), (512, 100, 63, 1344, 8),
+             (512, 20_480, 20_000, DIM, 8), (256, 20_480, 20_000, 1152, 200),
+             (4160, 20_480, 20_000, DIM, 8), (4160, 5000, 4900, DIM, 200)]
+
+
 def check_dense_co(b: int, n_rows: int, n_valid: int, d: int, k: int,
-                   dtype=torch.bfloat16, seed: int = 0):
-    """K7 against dense_topk_ref on the card (within TOL, ids equal but at
-    near ties) and against K1 (the same scores, so ids equal but at near
-    ties). Returns max_abs_err against the plain version."""
-    from tpurag_torch.kernels.dense import (dense_topk, dense_topk_co,
+                   dtype=torch.bfloat16, seed: int = 0, runs: int = 1,
+                   first_body: bool = False, misalign: bool = False):
+    """K7 (as routed, or its first body) against dense_topk_ref on the
+    card (within TOL, ids equal but at near ties) and against K1 (the same
+    scores, so ids equal but at near ties), `runs` times on the same inputs
+    (a ring stage reused too early shows now and then, not always).
+    misalign: the corpus starts one element past a 16-byte boundary.
+    Returns max_abs_err against the plain version."""
+    from tpurag_torch.kernels.dense import (_dense_topk_co_cuda, dense_topk,
                                             dense_topk_ref)
 
     rng = np.random.default_rng(seed)
-    emb = torch.zeros((n_rows, d), dtype=dtype, device="cuda")
+    flat = torch.zeros(n_rows * d + misalign, dtype=dtype, device="cuda")
+    emb = flat[int(misalign):].view(n_rows, d)
     emb[:n_valid] = torch.from_numpy(unit_rows(rng, n_valid, d)).cuda().to(dtype)
     q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
-    v_c, i_c = dense_topk_co(q, emb, n_valid, k)
     v_1, i_1 = dense_topk(q, emb, n_valid, k)
     v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
-    torch.cuda.synchronize()
-    assert v_c.shape == (b, k) and i_c.dtype == torch.int32
-    assert torch.isfinite(v_c).all()
-    err = topk_agree(v_c, i_c, v_r, i_r)
-    topk_agree(v_c, i_c, torch.cat([v_1, v_r[:, k:]], 1),
-               torch.cat([i_1, i_r[:, k:]], 1))
+    err = 0.0
+    for _ in range(runs):
+        v_c, i_c = _dense_topk_co_cuda(q, emb, n_valid, k,
+                                       sm90=False if first_body else None)
+        torch.cuda.synchronize()
+        assert v_c.shape == (b, k) and i_c.dtype == torch.int32
+        assert torch.isfinite(v_c).all()
+        err = max(err, topk_agree(v_c, i_c, v_r, i_r))
+        topk_agree(v_c, i_c, torch.cat([v_1, v_r[:, k:]], 1),
+                   torch.cat([i_1, i_r[:, k:]], 1))
     return err
 
 
@@ -990,12 +1020,13 @@ def drive_slice(device: str, kernels=()) -> dict:
 
 def count_names(kernels) -> list:
     """The launch counts a drive resets and reads: each kernel wrapper's,
-    and beside dense_topk's (every K1 launch) and dense_scan_q8's (every
-    K5 launch) dense_topk_sm90's and dense_scan_q8_sm90's (those that took
-    the TMA + wgmma bodies)."""
+    and beside dense_topk's (every K1 launch), dense_scan_q8's (every K5
+    launch) and dense_topk_co's (every K7 launch) dense_topk_sm90's,
+    dense_scan_q8_sm90's and dense_topk_co_sm90's (those that took the
+    TMA + wgmma bodies)."""
     names = [fn.__name__ for fn in kernels]
-    return names + [f"{n}_sm90" for n in ("dense_topk", "dense_scan_q8")
-                    if n in names]
+    return names + [f"{n}_sm90" for n in ("dense_topk", "dense_scan_q8",
+                                          "dense_topk_co") if n in names]
 
 
 def recording(module, name: str, calls: list):
@@ -1031,22 +1062,29 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float):
 
 
 def replay_dense(calls) -> dict:
-    """K1 (as routed, and its first body) and K7 on the main path's own
-    inputs (one request's K1 calls): each held to dense_topk_ref by
-    topk_agree, with the summed times of both K1 bodies, K7, the plain
-    version and torch.topk(q @ emb.T) in bf16 (one function, so one
-    bound)."""
-    from tpurag_torch.kernels.dense import (_dense_topk_first_body,
+    """K1 (as routed, and its first body) and K7 (as routed, and its first
+    body) on the main path's own inputs (one request's K1 calls): each held
+    to dense_topk_ref by topk_agree, with the summed times of both K1
+    bodies, both K7 bodies, the plain version and
+    torch.topk(q @ emb.T) in bf16 (one function, so one bound). Every K7
+    call as routed must take its Hopper body."""
+    from tpurag_torch.kernels.dense import (_dense_topk_co_first_body,
+                                            _dense_topk_first_body,
                                             dense_topk, dense_topk_co,
                                             dense_topk_ref)
+    from tpurag_torch.kernels.runtime import launch_counts
 
-    err = co_err = first_err = nbytes = ops = co_ms = 0.0
+    err = co_err = first_err = nbytes = ops = 0.0
     times = dict.fromkeys(("ms", "first_ms", "plain_ms", "lib_ms"), 0.0)
+    co = dict.fromkeys(("co_ms", "co_first_ms"), 0.0)
     shapes = []
     for (q, emb, n_valid, k), _ in calls:
+        before = launch_counts["dense_topk_co_sm90"]
+        v_c, i_c = dense_topk_co(q, emb, n_valid, k)
+        assert launch_counts["dense_topk_co_sm90"] == before + 1, (
+            f"K7 missed its Hopper body at {tuple(q.shape)} x {n_valid}")
         v_k, i_k = dense_topk(q, emb, n_valid, k)
         v_f, i_f = _dense_topk_first_body(q, emb, n_valid, k)
-        v_c, i_c = dense_topk_co(q, emb, n_valid, k)
         v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
         torch.cuda.synchronize()
         assert all(torch.isfinite(v).all() for v in (v_k, v_f, v_c))
@@ -1056,14 +1094,17 @@ def replay_dense(calls) -> dict:
         del v_r, i_r
         for key, t in dense_times(q, emb, n_valid, k).items():
             times[key] += t
-        co_ms += cuda_ms(lambda: dense_topk_co(q, emb, n_valid, k))
+        co["co_ms"] += cuda_ms(lambda: dense_topk_co(q, emb, n_valid, k))
+        co["co_first_ms"] += cuda_ms(
+            lambda: _dense_topk_co_first_body(q, emb, n_valid, k), iters=5,
+            warmup=1)
         b, d = q.shape
         nbytes += (b * d * q.element_size() + n_valid * d * emb.element_size()
                    + b * k * 8)
         ops += 2 * b * n_valid * d
         shapes.append(f"{b}x{n_valid}x{d} k={k}")
-    return {"err": err, "first_err": first_err, "co_err": co_err,
-            "co_ms": co_ms, **times, "shapes": shapes,
+    return {"err": err, "first_err": first_err, "co_err": co_err, **co,
+            **times, "shapes": shapes,
             "bound": bound_ms(nbytes, ops, BF16_FLOPS_S)}
 
 
@@ -1780,6 +1821,8 @@ PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "full_rows_kernel": "K3", "combine_items_kernel": "K4",
                 "ivf_scan_kernel": "K6",
                 "ivf_merge_kernel": "K6", "dense_co_scan_kernel": "K7",
+                "dense_co_resident_q_kernel": "K7",
+                "dense_co_resident_c_kernel": "K7",
                 "gather_scores_kernel": "K8"}
 
 
@@ -1925,8 +1968,10 @@ def main() -> int:
         f"(nvcc {runtime.build_info['seconds']:.1f}s) "
         f"{runtime.build_info['path']}")
     func = ""
-    wgmma_bodies = ("dense_scan_sm90_kernel", "dense_scan_q8_sm90_kernel")
-    spill_lines = dict.fromkeys(wgmma_bodies, 0)
+    wgmma_bodies = ("dense_scan_sm90_kernel", "dense_scan_q8_sm90_kernel",
+                    "dense_co_resident_q_kernel",
+                    "dense_co_resident_c_kernel")
+    spill_funcs = {body: set() for body in wgmma_bodies}
     for line in runtime.build_info["log"].splitlines():
         if m := re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?(\w+)", line):
@@ -1935,14 +1980,17 @@ def main() -> int:
             log(f"[build] {func}: {line.strip()}")
         for body in wgmma_bodies:
             if "spill" in line and body in func:
-                spill_lines[body] += 1
+                spill_funcs[body].add(func)
                 assert re.search(r"\b0 bytes spill stores, 0 bytes spill "
                                  r"loads", line), f"{body} spills: {line}"
     # No ptxas report for a kernel means the log or its format changed,
     # and the check above saw nothing (K5's body has two tiles).
-    assert spill_lines == {"dense_scan_sm90_kernel": 1,
-                           "dense_scan_q8_sm90_kernel": 2}, (
-        f"ptxas spill lines of the wgmma bodies: {spill_lines}")
+    spill_counts = {body: len(f) for body, f in spill_funcs.items()}
+    assert spill_counts == {"dense_scan_sm90_kernel": 1,
+                            "dense_scan_q8_sm90_kernel": 2,
+                            "dense_co_resident_q_kernel": 1,
+                            "dense_co_resident_c_kernel": 1}, (
+        f"wgmma bodies with a ptxas spill report: {spill_counts}")
 
     # -- 3. K1 against its plain version --------------------------------------
     launch_counts["dense_topk_sm90"] = 0
@@ -2223,18 +2271,36 @@ def main() -> int:
         f"64, 256, 2048}}, packed cbits={packed_cbits(N_DOCS)} and unpacked; "
         f"clamped starts, empty windows, docs >= n_valid, k > W) "
         f"bit-identical to the plain version ({card})")
+    t0 = time.perf_counter()
     err7 = 0.0
+    for i, args in enumerate(K7_SHAPES):
+        before = launch_counts["dense_topk_co_sm90"]
+        err7 = max(err7, check_dense_co(*args, seed=20 + i, runs=2))
+        assert launch_counts["dense_topk_co_sm90"] == before + 2, args
+    before = launch_counts["dense_topk_co_sm90"]
     for args in ((7, 300, 300, 64, 8), (16, 5000, 4777, 128, 8),
                  (130, 2500, 2500, 96, 5), (3, 10, 4, 32, 8),
                  (9, 257, 200, 130, 3), (256, 20_480, 20_000, DIM, 200),
                  (4160, 20_480, 20_000, DIM, 8)):
         err7 = max(err7, check_dense_co(*args, seed=args[0] + args[-1]))
+    assert launch_counts["dense_topk_co_sm90"] == before + 6  # D=130 not
+    # The first body: fp32, D past form (ii)'s tile, an unaligned corpus.
+    before = launch_counts["dense_topk_co_sm90"]
     err7 = max(err7, check_dense_co(64, 4096, 4000, 256, 40, torch.float32,
-                                    seed=2))
-    log(f"[K7] 8 shapes (tests/test_dense.py's corpus-outer shapes, k=200, "
-        f"fp32, b=4160 past the JAX wrapper's 4096 cap): max|dscore|="
-        f"{err7:.3e} against the plain version, ids equal to K1's but at "
-        f"near ties ({card})")
+                                    seed=2),
+               check_dense_co(130, 3000, 2900, 1352, 8, seed=3),
+               check_dense_co(130, 3000, 2900, DIM, 8, seed=4, misalign=True),
+               check_dense_co(512, 20_480, 20_000, DIM, 8, seed=5,
+                              first_body=True))
+    assert launch_counts["dense_topk_co_sm90"] == before, "took the wgmma body"
+    log(f"[K7] Hopper body, {len(K7_SHAPES)} shapes x 2 runs (b in {{1, 8, "
+        f"32, 33, 130, 512, 4160}}, n_valid in {{0, 5, 63, mid-tile}}, an "
+        f"odd count of tiles, D in {{64, 1024, 1152, 1344}}, k in {{1, 8, "
+        f"40, 200, 600}}), tests/test_dense.py's corpus-outer shapes, "
+        f"b=4160 past the JAX wrapper's 4096 cap; the first body on fp32, "
+        f"D=1352, a misaligned corpus and as named: "
+        f"max|dscore|={err7:.3e} against the plain version, ids equal to "
+        f"K1's but at near ties ({time.perf_counter() - t0:.1f}s) ({card})")
 
     # 9b. The five runnable eval configs at full size, each with every
     # launch count reset just before and read just after; the hybrid step's
@@ -2329,8 +2395,9 @@ def main() -> int:
         err7 = max(err7, r["co_err"])
         log(f"[K7] {name} ({', '.join(r['shapes'])}): max|dscore|="
             f"{r['co_err']:.3e} (K1 {r['err']:.3e}, K1's first body "
-            f"{r['first_err']:.3e}) against the plain version; K7 "
-            f"{r['co_ms']:.3f} ms, K1 {r['ms']:.3f} ms, K1's first body "
+            f"{r['first_err']:.3e}) against the plain version; K7's Hopper "
+            f"body {r['co_ms']:.3f} ms, K7's first body "
+            f"{r['co_first_ms']:.3f} ms, K1 {r['ms']:.3f} ms, K1's first body "
             f"{r['first_ms']:.3f} ms, torch.topk(q @ emb.T) "
             f"{r['lib_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound'][0]:.4f} ms ({r['bound'][1]}) ({card})")
@@ -2412,7 +2479,7 @@ def main() -> int:
          "bound_ms": k2f["bound"][0], "bound_by": k2f["bound"][1],
          "library_ms": None},
         {"name": "dense_topk_co", "route": "cuda",
-         "source": "tpurag_torch/csrc/dense_topk.cu",
+         "source": "tpurag_torch/csrc/dense_topk_co_sm90.cu",
          "replaces": "tpurag/kernels/dense.py:236",
          "launches": co_launches, "max_abs_err": err7,
          "ms": k1["co_ms"], "plain_ms": k1["plain_ms"],

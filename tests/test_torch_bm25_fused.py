@@ -209,6 +209,8 @@ def test_segsum_and_fused_no_hits():
     ("full_rows_kernel", "K3"),
     ("merge_segsum_kernel<true, true>", "K2'"),
     ("dense_co_scan_kernel<__nv_bfloat16, 64>", "K7"),
+    ("dense_co_resident_c_kernel", "K7"),
+    ("dense_co_resident_q_kernel", "K7"),
     ("dense_scan_kernel<signed char>", "K5"),
     ("dense_scan_kernel<__nv_bfloat16>", "K1"),
 ])

@@ -289,6 +289,36 @@ def test_dense_co_kernel_matches_plain(cuda, b, n_rows, n_valid, d, k,
     assert launch_counts["dense_topk_co"] == before + 1
 
 
+@pytest.mark.parametrize("b,n_rows,n_valid,d,k", chip_smoke.K7_SHAPES)
+def test_dense_co_sm90_body_matches_plain(cuda, b, n_rows, n_valid, d, k):
+    """K7's TMA + wgmma body (chip_smoke.K7_SHAPES) as routed, twice on the
+    same inputs: a ring stage refilled too early shows now and then, not
+    always."""
+    before = launch_counts["dense_topk_co_sm90"]
+    err = chip_smoke.check_dense_co(b, n_rows, n_valid, d, k, seed=b + k,
+                                    runs=2)
+    assert err <= chip_smoke.TOL
+    assert launch_counts["dense_topk_co_sm90"] == before + 2
+
+
+@pytest.mark.parametrize("case", ["d1352", "fp32", "misaligned", "named"])
+def test_dense_co_first_body_takes_the_rest(cuda, case):
+    """D = 1352 (past form (ii)'s tile), fp32 and a corpus one element past
+    a 16-byte boundary take K7's first body, as does a call by name."""
+    args = {"d1352": ((130, 3000, 2900, 1352, 8), {}),
+            "fp32": ((130, 3000, 2900, 256, 8, torch.float32), {}),
+            "misaligned": ((130, 3000, 2900, 1024, 8), {"misalign": True}),
+            "named": ((130, 3000, 2900, 1024, 8), {"first_body": True})}
+    pos, kw = args[case]
+    before = (launch_counts["dense_topk_co"],
+              launch_counts["dense_topk_co_sm90"])
+    err = chip_smoke.check_dense_co(*pos, seed=7, **kw)
+    assert err <= chip_smoke.TOL
+    assert (launch_counts["dense_topk_co"],
+            launch_counts["dense_topk_co_sm90"]) == (before[0] + 1,
+                                                     before[1])
+
+
 def test_fused_bm25_kernel_takes_each_doc_once(cuda):
     """A clamped window that spans two terms is not sorted, so doc 5 ends
     two segments; like select_topk, K2' takes it once."""

@@ -8,6 +8,9 @@ summation order only, as in test_torch_dense.py). The JAX wrapper caps
 the padded batch at 4096 (a VMEM limit); the port has no cap.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,3 +112,118 @@ def test_dense_co_splits():
     assert dense_mod.dense_co_splits(15_625, 8) == dense_mod.TARGET_BLOCKS
     assert dense_mod.dense_co_splits(15_625, 200) == (
         dense_mod.MAX_MERGE_CANDIDATES // 200)
+
+
+# -- K7's Hopper body: route, form, budget, splits (CPU; the kernel itself
+# is held to the plain version on the card, tests/test_torch_cuda.py) ------
+
+CO_SRC = (pathlib.Path(__file__).resolve().parents[1]
+          / "tpurag_torch/csrc/dense_topk_co_sm90.cu")
+
+
+def _cu_constants(struct: str) -> dict:
+    """The `static constexpr int` constants of a struct in K7's Hopper
+    source, evaluated in order (TD and WARPS from the file's top)."""
+    src = CO_SRC.read_text()
+    env = {}
+    for name in ("TD", "THREADS", "WARPS"):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+        env[name] = eval(expr, {}, env)
+    body = re.search(rf"struct {struct} {{(.*?)\n}};", src, re.S).group(1)
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
+                                 body):
+        env[name] = eval(expr, {}, env)
+    return env
+
+
+def _cu_bytes(form: int, d: int) -> int:
+    """ResQ::bytes / ResC::bytes (at the ring's least depth) of the .cu
+    file at width d."""
+    ks_n = dense_mod.cdiv(d, 64)
+    if form == 1:  # barriers: full and empty per stage, the query boxes'
+        c = _cu_constants("ResQ")
+        ring, res, bars = c["BOX"], c["QBOX"], 2 * c["STAGES"] + 1
+    else:  # full and empty per stage, one per corpus box
+        c = _cu_constants("ResC")
+        ring, res, bars = c["QBOX"], c["CBOX"], 2 * c["STAGES"] + ks_n
+    return 1024 + c["STAGES"] * ring + ks_n * res + c["SCORE"] + bars * 8
+
+
+@pytest.mark.parametrize("form,d,fits", [
+    (2, 1024, True), (2, 1344, True), (2, 1352, False),
+    (1, 1024, True), (1, 2304, True), (1, 2312, False),
+])
+def test_dense_co_sm90_budget_matches_the_kernel(form, d, fits):
+    """kernels/dense.co_sm90_bytes mirrors the .cu file's budget: form
+    (ii) holds D up to 1344 (21 corpus boxes beside a 3-stage ring), form
+    (i) up to 2304 (36 query boxes), in 227 KB beside 1 KB of realignment
+    room."""
+    assert dense_mod.co_sm90_bytes(form, d) == _cu_bytes(form, d)
+    assert (dense_mod.co_sm90_bytes(form, d) <= dense_mod.MAX_SMEM) == fits
+    b = 32 if form == 1 else 33
+    assert dense_mod.co_sm90_form(b, d) == (form if fits else 0)
+
+
+@pytest.mark.parametrize("b,form", [(1, 1), (32, 1), (33, 2), (512, 2)])
+def test_dense_co_sm90_form_by_batch(b, form):
+    """Up to 32 queries stay resident (form (i)); from 33 on the corpus
+    tile does (form (ii))."""
+    assert dense_mod.co_sm90_form(b, 1024) == form
+
+
+@pytest.mark.parametrize("dtype,d,offset,form", [
+    (torch.bfloat16, 1024, 0, 2),
+    (torch.float32, 1024, 0, 0),     # fp32: the first body
+    (torch.bfloat16, 1024, 2, 0),    # one element past 16-byte alignment
+    (torch.bfloat16, 1028, 0, 0),    # D % 8 != 0: no TMA rows
+    (torch.bfloat16, 1344, 0, 2),    # form (ii)'s widest tile
+    (torch.bfloat16, 1352, 0, 0),
+])
+def test_dense_co_sm90_route(dtype, d, offset, form):
+    """The Hopper body takes bf16 rows that TMA can address and whose form
+    fits; everything else takes K7's first body."""
+    assert dense_mod.co_sm90_route(dtype, 130, d, 4096, 4096 + offset) == form
+
+
+@pytest.mark.parametrize("slots", [dense_mod.H100_SMS, 33])
+def test_dense_co_sm90_splits(slots):
+    """One block per split, within the blocks resident at once (all SMs,
+    or their share per query group), at least one tile in each split
+    where the tiles allow (the kernel's split_start gives floor or ceil
+    shares), and the merge's candidate cap kept."""
+    for n_tiles in list(range(0, 300)) + [15_625, 31_250]:
+        for k in (1, 8, 40, 200, 600):
+            s = dense_mod.co_sm90_splits(n_tiles, k, slots)
+            assert 1 <= s <= slots
+            assert s * k <= max(dense_mod.MAX_MERGE_CANDIDATES, k)
+            starts = [x * n_tiles // s for x in range(s + 1)]
+            empty = sum(b == a for a, b in zip(starts, starts[1:]))
+            assert empty == (1 if n_tiles == 0 else 0)
+    assert dense_mod.co_sm90_splits(15_625, 200, slots) == min(slots, 40)
+    assert dense_mod.co_sm90_splits(15_625, 8, slots) == slots
+    assert dense_mod.co_sm90_splits(3, 8, slots) == 3
+
+
+@pytest.mark.parametrize("b,form,groups", [
+    (512, 2, 4), (256, 2, 2), (130, 2, 2), (33, 2, 1), (8, 1, 1)])
+def test_dense_co_sm90_groups(b, form, groups):
+    """Form (ii) deals its 128-query tiles to up to CO_GROUPS blocks per
+    split; form (i) has one group."""
+    assert dense_mod.CO_GROUPS == 4
+    assert dense_mod.co_sm90_groups(b, form) == groups
+
+
+@pytest.mark.parametrize("probe", ["full", "no_mma", "no_fold", "no_tma",
+                                   "mma_only", "ring_3"])
+def test_k7_anatomy_patches_apply(probe):
+    """tools/k7_anatomy.py times K7's Hopper body with textual patches of
+    its source; each anchor must be in the source exactly once."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k7_anatomy.py"
+    spec = importlib.util.spec_from_file_location("k7_anatomy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = tool.patched(tool.PROBES[probe])
+    assert "dense_co_resident_c_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")

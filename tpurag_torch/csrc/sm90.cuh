@@ -1,5 +1,6 @@
 // Hopper pieces shared by the TMA + wgmma bodies of K1
-// (dense_topk_sm90.cu, bf16) and K5 (dense_topk_q8_sm90.cu, int8) and by
+// (dense_topk_sm90.cu, bf16), K5 (dense_topk_q8_sm90.cu, int8) and K7
+// (dense_topk_co_sm90.cu, bf16) and by
 // the bulk-copy staging of K3 (bm25_full.cu) and K4 (bm25_combine.cu): the
 // mbarrier, TMA and bulk copy helpers, the staging of an unaligned range,
 // the wgmma descriptor of a 128-byte-swizzled K-major box and the fences
@@ -154,6 +155,11 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Wait until at most one committed group of products is still running.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
 // Keep the compiler from moving accumulator reads or writes across the
