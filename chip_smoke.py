@@ -9,11 +9,18 @@ non-zero before the result line):
   2. build: compiles tpurag_torch/csrc with nvcc (sm_90a);
   3. K1 dense_topk against dense_topk_ref on the card at the main-path
      shape (1024 queries x 100k of 131072 rows x 1024 bf16, k=8), its
-     TMA + wgmma body at SM90_SHAPES (each twice), its first body at k=200,
+     TMA + wgmma body at SM90_SHAPES, its first body at k=200,
      in fp32 and at an unaligned D; the two bodies and torch.topk(q @
      emb.T) timed on the same inputs;
-  4. K2 merge_segsum_topk against merge_segsum_topk_ref for every width
-     class p in {64, 256, 1024, 2048} x t in {1, 2, 8}, packed and not;
+  4. K2 (csrc/bm25_topk.cu) against its plain version bit for bit, each
+     case twice: merge_segsum_topk (flipped candidate rows) for every width
+     class p in {64, 256, 1024, 2048} x t in {1, 2, 8}, packed and not,
+     and merge_segsum_topk_classes at its edges (K2_CASES: empty slots,
+     live lanes below the bucket width, slots narrower than p_max, t = 1, k
+     above the live lanes, ties, parked docs, a 16384-lane row, 256 slots,
+     a class mix in one launch); at b=1024 t=8 p=2048 packed and not,
+     timed beside its first body (tools/bm25_merge_first.cu, built by
+     tools/k2_anatomy.py) on the same rows;
      K3 merge_segsum_full_classes against its plain version at its edges
      (K3_CASES: a doc whose t lanes straddle an item boundary at t = 4
      and 16, docs in every slot, an all-parked row, empty slots, a slot
@@ -37,8 +44,11 @@ non-zero before the result line):
      chunks (bench.py's Zipf postings plan: df = clip(2048 (1+r)^-0.5,
      16, 2048) over a 50k vocabulary, ~1.05M postings), answers 4
      search_batch(mode="hybrid") requests of 1024 queries and 3 single
-     searches, with the kernels' launch counters reset just before;
-     then a save, a reload on the CPU, and 64 queries compared there;
+     searches, with the kernels' launch counters reset just before: K2
+     launched once a search; one request's K2 call replayed bit for bit
+     and timed beside its first body; one profiled request (device busy,
+     port kernels, glue); then a save, a reload on the CPU, and 64
+     queries compared there;
   6. timings (CUDA events, median of >= 10) of each kernel and its plain
      version, search_batch p50 at b=1024, ingest seconds;
   7. the 1M wide-term slice (bench.py's TPURAG_BENCH_N=1000000 plan:
@@ -48,13 +58,14 @@ non-zero before the result line):
      before, one profiled request (device busy, K3's, K4's and the
      gathers' shares), 64 hard queries' keyword top-8 against a CPU index
      of the same postings; every K1 launch took the TMA + wgmma body, and
-     K3 and K4 launched exactly once per request; K1 (both bodies, within
-     TOL at near ties), K2, K3 and K4 (bit for bit) held to their plain
-     versions and timed on the very inputs one request gave them, K3 and
-     K4 beside their first bodies' per-class launches on the same rows.
+     K2, K3 and K4 launched exactly once per request; K1 (both bodies,
+     within TOL at near ties), K2, K3 and K4 (bit for bit) held to their
+     plain versions and timed on the very inputs one request gave them,
+     K2, K3 and K4 beside their first bodies' per-class launches on the
+     same rows.
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
      (benchmarks/kb_10m.py --n 1000000 with the device store): K5's TMA +
-     int8 wgmma body at Q8_SHAPES (each twice) and its first body, K6
+     int8 wgmma body at Q8_SHAPES and its first body, K6
      (int8, bf16, fp32) and K8 against their plain versions at small
      shapes; KnowledgeBase(quant=True) ingests 1M x 1024 chunks of a
      1024-center mixture through add_chunks, build_ivf() packs 4096 int8
@@ -72,7 +83,7 @@ non-zero before the result line):
      version bit for bit at t in {1, 2, 4, 8} x p_max in {16, 64, 256,
      2048}, packed and not (clamped starts, empty windows, docs >=
      n_valid, k past the row), and K7 dense_topk_co against dense_topk_ref
-     within TOL: its TMA + wgmma body at K7_SHAPES (each twice),
+     within TOL: its TMA + wgmma body at K7_SHAPES,
      tests/test_dense.py's shapes, b=4160, and its first body on fp32,
      D=1352, a misaligned corpus and as named; the
      five runnable configs (exact_dense, hybrid, memory_fusion, graph,
@@ -145,8 +156,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over `iters` launches (CUDA events)."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, chain: int = 1) -> float:
+    """Median milliseconds of fn() over `iters` samples (CUDA events); a
+    sample runs fn `chain` times back to back and counts their mean, so a
+    launch whose host enqueue is slower than a short kernel is timed by the
+    card's work, not the host's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -154,10 +168,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(chain):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / chain)
     return statistics.median(times)
 
 
@@ -198,12 +213,10 @@ SM90_SHAPES = [(1, 1000, 1000, 1024, 8), (8, 5000, 4777, 72, 8),
 
 
 def check_dense(b: int, n_rows: int, n_valid: int, d: int, k: int,
-                dtype=torch.bfloat16, seed: int = 0, runs: int = 1,
+                dtype=torch.bfloat16, seed: int = 0,
                 first_body: bool = False, timed: bool = False):
     """K1 (as routed, or its first body) against its plain version on the
-    card, `runs` times on the same inputs (a stage of the TMA ring reused
-    too early shows now and then, not always). Returns (max_abs_err,
-    dense_times(...) or None unless timed)."""
+    card. Returns (max_abs_err, dense_times(...) or None unless timed)."""
     from tpurag_torch.kernels.dense import (_dense_topk_first_body,
                                             dense_topk, dense_topk_ref)
 
@@ -213,13 +226,11 @@ def check_dense(b: int, n_rows: int, n_valid: int, d: int, k: int,
     q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
     v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
     fn = _dense_topk_first_body if first_body else dense_topk
-    err = 0.0
-    for _ in range(runs):
-        v_k, i_k = fn(q, emb, n_valid, k)
-        torch.cuda.synchronize()
-        assert v_k.shape == (b, k) and i_k.dtype == torch.int32
-        assert torch.isfinite(v_k).all()
-        err = max(err, topk_agree(v_k, i_k, v_r, i_r))
+    v_k, i_k = fn(q, emb, n_valid, k)
+    torch.cuda.synchronize()
+    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+    assert torch.isfinite(v_k).all()
+    err = topk_agree(v_k, i_k, v_r, i_r)
     del v_r, i_r
     return err, dense_times(q, emb, n_valid, k) if timed else None
 
@@ -265,27 +276,56 @@ def merge_rows(rng, b: int, t: int, p: int, n_docs: int, flip: bool = True):
 
 
 def check_merge(b: int, t: int, p: int, cbits: int, k: int = 8,
-                n_docs: int = N_DOCS, seed: int = 0, timed: bool = False):
-    """K2 against its plain version on the card: the same network and
-    the same sums, so ids and scores must be bit-identical. Returns
-    (max_abs_err, kernel ms, plain ms)."""
-    from tpurag_torch.kernels.bm25_merge import (merge_segsum_topk,
+                n_docs: int = N_DOCS, seed: int = 0, runs: int = 1,
+                first=None):
+    """K2 on flipped candidate rows (merge_segsum_topk) against its plain
+    version on the card, `runs` times: the same merge order and the same
+    sums, so ids and scores must be bit-identical. first (tools/
+    k2_anatomy.py's build of K2's first body): also time the launch alone,
+    the first body on the same rows and the plain version. Returns
+    (max_abs_err, {"ms", "first_ms", "plain_ms"} or None)."""
+    from tpurag_torch.kernels.bm25_merge import (block_classes,
+                                                 flip_odd_blocks,
+                                                 merge_segsum_topk,
                                                  merge_segsum_topk_ref)
 
     doc, con = (torch.from_numpy(x).cuda() for x in
                 merge_rows(np.random.default_rng(seed), b, t, p, n_docs))
     pp = p if t > 1 else t * p
-    v_k, i_k = merge_segsum_topk(doc, con, k, pp, t, cbits)
     v_r, i_r = merge_segsum_topk_ref(doc, con, k, pp, t, cbits)
-    torch.cuda.synchronize()
-    assert torch.equal(i_k, i_r), f"ids differ at t={t} p={p} cbits={cbits}"
-    assert torch.equal(v_k, v_r), f"scores differ at t={t} p={p} cbits={cbits}"
+    for _ in range(runs):
+        v_k, i_k = merge_segsum_topk(doc, con, k, pp, t, cbits)
+        torch.cuda.synchronize()
+        where = f"t={t} p={p} cbits={cbits}"
+        assert torch.equal(i_k, i_r), f"ids differ at {where}"
+        assert torch.equal(v_k, v_r), f"scores differ at {where}"
     assert (i_k[:, 0] >= 0).any(), "no hits at all: the case is vacuous"
     err = (v_k - v_r).abs().max().item()
-    if not timed:
-        return err, None, None
-    return (err, cuda_ms(lambda: merge_segsum_topk(doc, con, k, pp, t, cbits)),
-            cuda_ms(lambda: merge_segsum_topk_ref(doc, con, k, pp, t, cbits)))
+    if first is None:
+        return err, None
+    tool = load_tool("k2_anatomy")
+    rows = (flip_odd_blocks(doc, pp, t), flip_odd_blocks(con, pp, t)) \
+        if t > 1 else (doc, con)  # the slots turned back, as the wrapper
+    widths, mats, spec = block_classes(*rows, pp, t, cbits)
+    return err, {
+        "ms": k2_classes_launch_ms(widths, mats, [spec],
+                                   *k2_out(b, k, "cuda")),
+        "first_ms": cuda_ms(lambda: tool.first_topk(first, doc, con, k, pp,
+                                                    t, cbits), chain=10),
+        "plain_ms": cuda_ms(lambda: merge_segsum_topk_ref(doc, con, k, pp, t,
+                                                          cbits))}
+
+
+def k2_classes_launch_ms(widths, mats, classes, out_v, out_i) -> float:
+    """K2's device time: its launch alone, repeated on one prepared table
+    (the wrapper's host work, the table build and upload, left out), in
+    chains of 10 (its host enqueue outlasts a small launch)."""
+    from tpurag_torch.kernels.bm25_merge import _k2_prepare, _k2_run
+    from tpurag_torch.kernels.runtime import load_kernels
+
+    fn = load_kernels().tr_topk_rows
+    prep = _k2_prepare(widths, mats, classes, out_v, out_i)
+    return cuda_ms(lambda: _k2_run(fn, prep), chain=10)
 
 
 def check_full(b: int, t: int, p: int, cbits: int, n_docs: int = N_DOCS,
@@ -309,7 +349,8 @@ def check_full(b: int, t: int, p: int, cbits: int, n_docs: int = N_DOCS,
     assert (seg_k > 0).any(), "no segment sums at all: the case is vacuous"
     if not timed:
         return 0.0, None, None
-    return (0.0, k3_launch_ms(block_classes(doc, con, p, t, cbits)),
+    widths, mats, spec = block_classes(doc, con, p, t, cbits)
+    return (0.0, k3_launch_ms((widths, mats, [], [spec], 0, 0)),
             cuda_ms(lambda: merge_segsum_full_ref(doc, con, p, t, cbits)))
 
 
@@ -383,14 +424,13 @@ K7_SHAPES = [(1, 1000, 1000, DIM, 8), (8, 5000, 4777, 64, 40),
 
 
 def check_dense_co(b: int, n_rows: int, n_valid: int, d: int, k: int,
-                   dtype=torch.bfloat16, seed: int = 0, runs: int = 1,
+                   dtype=torch.bfloat16, seed: int = 0,
                    first_body: bool = False, misalign: bool = False):
     """K7 (as routed, or its first body) against dense_topk_ref on the
     card (within TOL, ids equal but at near ties) and against K1 (the same
-    scores, so ids equal but at near ties), `runs` times on the same inputs
-    (a ring stage reused too early shows now and then, not always).
-    misalign: the corpus starts one element past a 16-byte boundary.
-    Returns max_abs_err against the plain version."""
+    scores, so ids equal but at near ties). misalign: the corpus starts one
+    element past a 16-byte boundary. Returns max_abs_err against the plain
+    version."""
     from tpurag_torch.kernels.dense import (_dense_topk_co_cuda, dense_topk,
                                             dense_topk_ref)
 
@@ -401,16 +441,14 @@ def check_dense_co(b: int, n_rows: int, n_valid: int, d: int, k: int,
     q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
     v_1, i_1 = dense_topk(q, emb, n_valid, k)
     v_r, i_r = dense_topk_ref(q, emb, n_valid, k + 1)
-    err = 0.0
-    for _ in range(runs):
-        v_c, i_c = _dense_topk_co_cuda(q, emb, n_valid, k,
-                                       sm90=False if first_body else None)
-        torch.cuda.synchronize()
-        assert v_c.shape == (b, k) and i_c.dtype == torch.int32
-        assert torch.isfinite(v_c).all()
-        err = max(err, topk_agree(v_c, i_c, v_r, i_r))
-        topk_agree(v_c, i_c, torch.cat([v_1, v_r[:, k:]], 1),
-                   torch.cat([i_1, i_r[:, k:]], 1))
+    v_c, i_c = _dense_topk_co_cuda(q, emb, n_valid, k,
+                                   sm90=False if first_body else None)
+    torch.cuda.synchronize()
+    assert v_c.shape == (b, k) and i_c.dtype == torch.int32
+    assert torch.isfinite(v_c).all()
+    err = topk_agree(v_c, i_c, v_r, i_r)
+    topk_agree(v_c, i_c, torch.cat([v_1, v_r[:, k:]], 1),
+               torch.cat([i_1, i_r[:, k:]], 1))
     return err
 
 
@@ -762,6 +800,134 @@ def check_full_classes(name: str, runs: int = 2, seed: int = 0):
     assert any((v > 0).any() for v in sums), f"{name}: no sums, vacuous"
 
 
+# K2's edge cases (csrc/bm25_topk.cu: one block per query row, its slots'
+# live lanes staged and merged in shared memory). "empty": empty slots, an
+# all-empty row; "live": live lanes below the bucket width, and cut short
+# of a row's docs; "narrow": slots narrower than p_max; "t1": t = 1 at two
+# widths, packed and not; "sparse": k above the live lanes; "ties": equal
+# scores across docs (doc order breaks them); "park": cbits 14 with docs
+# past (2^31 - 1) >> 14 parked; "full": t = 8 x 2048 all live (16384
+# lanes, the most shared memory); "many": t = 256 slots of 64 lanes; "mix":
+# classes of several (p_max, t) and both layouts in one launch, rows
+# permuted, one result row left to no class. name -> k (8 to 300 argmax
+# passes).
+K2_CASES = {"empty": 8, "live": 8, "narrow": 8, "t1": 8, "sparse": 300,
+            "ties": 24, "park": 8, "full": 8, "many": 8, "mix": 40}
+
+
+def k2_case(name: str, device="cuda", seed: int = 0):
+    """(widths, mats, classes, h, k) of one K2_CASES case, as
+    merge_segsum_topk_classes takes them (mats on `device`; the results go
+    into (h, k) buffers)."""
+    rng = np.random.default_rng(seed)
+    mats, classes, h = {}, [], 0
+
+    def add(w, lists, n_docs, value=None):
+        mats[w] = k3_matrix(rng, w, lists, n_docs)
+        if value is not None:
+            mats[w][1][mats[w][1] > 0] = value
+
+    def cls(p_max, t, g, cbits=0, **kw):
+        nonlocal h
+        sel = np.arange(h, h + g)
+        h += g
+        classes.append(k3_class(rng, mats, p_max, t, g, cbits, sel, **kw))
+
+    if name == "empty":
+        for w in (16, 64, 256):
+            add(w, k3_lists(rng, 5, w, 5000), 5000)
+        cls(256, 4, 3, empty=0.4)
+        cls(256, 4, 1, rows=[[(0, 0)] * 4])
+        cls(64, 2, 2, 14, rows=[[(0, 0), (64, 2)], [(16, 1), (0, 0)]])
+    elif name == "live":
+        for w in (256, 1024):
+            add(w, k3_lists(rng, 6, w, 20_000), 20_000)
+        cls(1024, 4, 4)
+        cls(1024, 8, 3, 14)
+        for c in classes:  # half the slots merge only part of their row
+            live = c[6]
+            cut = rng.random(live.shape) < 0.5
+            live[cut] = np.maximum(live[cut] // 3, 1)
+    elif name == "narrow":
+        for w in (16, 32, 64, 128, 2048):
+            add(w, k3_lists(rng, 4, w, 50_000), 50_000)
+        cls(2048, 8, 3, rows=[[(16, 1), (32, 2), (64, 1), (128, 3),
+                               (2048, 1), (16, 2), (32, 1), (64, 4)]] * 3)
+        cls(2048, 2, 2, 14, rows=[[(16, 3), (128, 2)]] * 2)
+    elif name == "t1":
+        for w in (64, 2048):
+            add(w, k3_lists(rng, 5, w, 60_000), 60_000)
+        cls(64, 1, 3)
+        cls(2048, 1, 3, 14)
+        cls(2048, 1, 2)
+    elif name == "sparse":
+        for w in (16, 64):
+            add(w, k3_lists(rng, 4, w, 1000, fill=(0.1, 0.3)), 1000)
+        cls(64, 4, 3)
+        cls(16, 2, 2, 14)
+    elif name == "ties":
+        add(256, k3_lists(rng, 6, 256, 3000), 3000, value=1.0)
+        cls(256, 4, 3)
+        for c in classes:
+            c[7][:] = 1.5
+    elif name == "park":
+        for w in (64, 1024, 4096):
+            add(w, k3_lists(rng, 6, w, 200_000), 200_000)
+        cls(4096, 4, 3, 14)
+        cls(1024, 2, 2, 14)
+    elif name == "full":
+        add(2048, k3_lists(rng, 10, 2048, N_WIDE, fill=(1.0, 1.0)), N_WIDE)
+        cls(2048, 8, 2)
+        cls(2048, 8, 1, 11)
+    elif name == "many":
+        add(64, k3_lists(rng, 300, 64, 30_000), 30_000)
+        cls(64, 256, 2)
+    elif name == "mix":
+        for w in (16, 64, 256, 1024, 2048):
+            add(w, k3_lists(rng, 6, w, 100_000), 100_000)
+        cls(64, 1, 3)
+        cls(256, 2, 2, empty=0.2)
+        cls(2048, 8, 4, empty=0.1)
+        cls(1024, 4, 2, 14)
+        h += 1  # a row of no class
+        perm = rng.permutation(h)
+        classes[:] = [(*c[:3], perm[c[3]], *c[4:]) for c in classes]
+    else:
+        raise KeyError(name)
+    widths = tuple(sorted(mats))
+    dev_mats = tuple((torch.from_numpy(mats[w][0]).to(device),
+                      torch.from_numpy(mats[w][1]).to(device))
+                     for w in widths)
+    return widths, dev_mats, classes, h, K2_CASES[name]
+
+
+def k2_out(h: int, k: int, device):
+    """(h, k) result buffers as a search makes them: (NEG_INF, -1)."""
+    return (torch.full((h, k), -3.0e38, device=device),
+            torch.full((h, k), -1, dtype=torch.int32, device=device))
+
+
+def check_topk_classes(name: str, runs: int = 2, seed: int = 0):
+    """The batched K2 on a K2_CASES case against its plain version on the
+    card, bit for bit, `runs` times (a fresh pair of result buffers each
+    time)."""
+    from tpurag_torch.kernels.bm25_merge import (
+        merge_segsum_topk_classes, merge_segsum_topk_classes_ref)
+
+    widths, mats, classes, h, k = k2_case(name, seed=seed)
+    v_r, i_r = merge_segsum_topk_classes_ref(widths, mats, classes,
+                                             *k2_out(h, k, "cuda"))
+    for _ in range(runs):
+        v_k, i_k = merge_segsum_topk_classes(widths, mats, classes,
+                                             *k2_out(h, k, "cuda"))
+        torch.cuda.synchronize()
+        assert torch.equal(i_k, i_r), f"K2 ids differ: {name}"
+        assert torch.equal(v_k, v_r), f"K2 scores differ: {name}"
+    assert (i_r[:, 0] >= 0).any(), f"{name}: no hits, the case is vacuous"
+    if name == "sparse":
+        assert (i_r[:, -1] == -1).all(), "sparse: k must pass the live lanes"
+
+
 # K5 at every edge its two bodies have: b in {1, 8, 32} (the wgmma body's
 # 32-query tile, queries resident) and {33, 40, 512} (its 128-query tile),
 # n_valid < N and not a multiple of 128, D in {48, 1024, 4096} (48: TMA's
@@ -779,10 +945,10 @@ Q8_SHAPES = [(1, 1000, 999, DIM, 1), (8, 5000, 4777, 48, 20),
 
 
 def check_q8(b: int, n_rows: int, n_valid: int, d: int, k: int, seed: int = 0,
-             runs: int = 1, first_body: bool = False):
+             first_body: bool = False):
     """K5 (as routed, or its first body) against its plain version on the
-    card, `runs` times on the same inputs: exact int dots and one scale
-    multiply, so values and ids must be bit-identical."""
+    card: exact int dots and one scale multiply, so values and ids must be
+    bit-identical."""
     from tpurag_torch.kernels.quant import (_dense_scan_q8_first_body,
                                             dense_scan_q8, dense_scan_q8_ref,
                                             quantize_rows)
@@ -795,14 +961,13 @@ def check_q8(b: int, n_rows: int, n_valid: int, d: int, k: int, seed: int = 0,
     args = (q8, qs, e8, es, n_valid, k)
     v_r, i_r = dense_scan_q8_ref(*args)
     fn = _dense_scan_q8_first_body if first_body else dense_scan_q8
-    for _ in range(runs):
-        v_k, i_k = fn(*args)
-        torch.cuda.synchronize()
-        assert v_k.shape == (b, k) and i_k.dtype == torch.int32
-        assert torch.equal(i_k, i_r), (
-            f"K5 ids differ at b={b} n={n_valid} d={d} k={k}")
-        assert torch.equal(v_k, v_r), (
-            f"K5 values differ at b={b} n={n_valid} d={d} k={k}")
+    v_k, i_k = fn(*args)
+    torch.cuda.synchronize()
+    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+    assert torch.equal(i_k, i_r), (
+        f"K5 ids differ at b={b} n={n_valid} d={d} k={k}")
+    assert torch.equal(v_k, v_r), (
+        f"K5 values differ at b={b} n={n_valid} d={d} k={k}")
 
 
 def check_gather(b: int, m: int, n: int, d: int, dtype=torch.bfloat16,
@@ -941,12 +1106,15 @@ def nvidia_smi() -> str:
 
 def drive_slice(device: str, kernels=()) -> dict:
     """The main path through the public API: ingest the bench corpus into
-    KnowledgeBase(dim=1024, device=device), answer 4 search_batch(hybrid)
-    requests of BATCH queries and 3 single searches (each kernel's launch
-    count reset just before and read just after), check the answers, then
-    save, reload on the CPU and compare 64 queries there."""
+    KnowledgeBase(dim=1024, device=device), one warm-up search_batch
+    (compaction; its K2 call is recorded), 4 search_batch(hybrid) requests
+    of BATCH queries and 3 single searches (each kernel's launch count
+    reset just before and read just after), check the answers, profile one
+    request on the card, then save, reload on the CPU and compare 64
+    queries there."""
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.types import Chunk
+    from tpurag_torch.index import inverted as inverted_mod
     from tpurag_torch.kernels.runtime import BUILD_DIR, launch_counts
 
     def sync():
@@ -975,7 +1143,9 @@ def drive_slice(device: str, kernels=()) -> dict:
     for _ in range(5):  # one warm-up (the first search compacts), four timed
         qv, src = query_vectors(rng, emb_rows, BATCH)
         batches.append((zipf_queries(rng, BATCH), qv, src))
-    kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
+    calls = []
+    with recording(inverted_mod, "merge_segsum_topk_classes", calls):
+        kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
     sync()
 
     for name in count_names(kernels):
@@ -1004,6 +1174,9 @@ def drive_slice(device: str, kernels=()) -> dict:
     assert all(s.results for s in singles)
     log(f"[kb] answers: 4 x {BATCH} responses, seed-row recall in fused "
         f"top-8 {recall:.4f}; 3 single searches non-empty")
+    profile = device_profile(lambda: kb.search_batch(
+        batches[1][0], mode="hybrid", vectors=batches[1][1])) \
+        if device == "cuda" else None
 
     save_dir = BUILD_DIR / "smoke_kb"
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -1015,7 +1188,8 @@ def drive_slice(device: str, kernels=()) -> dict:
         assert [x.chunk_id for x in a.results] == [x.chunk_id for x in b.results]
     shutil.rmtree(save_dir, ignore_errors=True)
     log("[kb] save -> load(device='cpu'): 64 queries give the same top-8")
-    return {"launches": launches, "lat_ms": lat, "ingest_s": ingest_s}
+    return {"launches": launches, "lat_ms": lat, "ingest_s": ingest_s,
+            "calls": calls, "profile": profile}
 
 
 def count_names(kernels) -> list:
@@ -1047,11 +1221,6 @@ def recording(module, name: str, calls: list):
             setattr(module, name, real)
 
     return ctx()
-
-
-def merge_stages(w: int, p: int) -> int:
-    """Compare-exchange stages of the bitonic merge from block 2p to w."""
-    return sum(range((2 * p).bit_length() - 1, w.bit_length()))
 
 
 def bound_ms(nbytes: float, ops: float, peak_ops: float):
@@ -1144,27 +1313,68 @@ def replay_fused(calls) -> dict:
             "all_lanes_ms": all_lanes / HBM_BYTES_S * 1e3}
 
 
-def replay_merge(calls) -> dict:
-    """K2 on the main path's own inputs: bit-identical to its plain
-    version, and the summed times."""
-    from tpurag_torch.kernels.bm25_merge import (merge_segsum_topk,
-                                                 merge_segsum_topk_ref)
+def k2_bytes(classes, h: int, k: int) -> tuple[float, int]:
+    """(bytes, live lanes) K2 must move for these classes: every live lane
+    of every used slot (doc + impact, 8 bytes) read once, the table (8
+    bytes an entry: 4 a bucket matrix the slots use, 8 a row, 2 a slot)
+    and the (h, k) result (8 bytes a slot) written once."""
+    live = table = 0
+    used = set()
+    for p_max, _, _, _, bucketw, _, lv, _ in classes:
+        bw = np.asarray(bucketw)
+        ok = (bw > 0) & (bw <= p_max)
+        live += int(np.where(ok, np.minimum(lv, bw), 0).sum())
+        used |= set(np.unique(bw[ok]).tolist())
+        table += 8 * bw.shape[0] + 2 * bw.size
+    return (live + 4 * len(used) + table) * 8 + h * k * 8, live
 
-    ms = plain_ms = nbytes = ops = 0.0
+
+def replay_topk(calls, first=None) -> dict:
+    """K2 on the main path's own inputs (merge_segsum_topk_classes calls,
+    one per search): bit-identical to its plain version in fresh result
+    buffers, and the times of the one launch (device time), the whole
+    wrapper call (its host work included), the plain version and (first:
+    tools/k2_anatomy.py's build of K2's first body) that body's per-class
+    launches on the same rows gathered beforehand (the launches timed in
+    chains: device time). The bound is by bytes
+    (k2_bytes): the merge's few compares a lane would take a tenth of that
+    even at the fp32 rate."""
+    from tpurag_torch.kernels.bm25_merge import (
+        merge_segsum_topk_classes, merge_segsum_topk_classes_ref)
+
+    tool = load_tool("k2_anatomy") if first is not None else None
+    ms = call_ms = plain_ms = first_ms = nbytes = lanes = 0.0
     shapes = []
-    for (doc, con), kw in calls:
-        v_k, i_k = merge_segsum_topk(doc, con, **kw)
-        v_r, i_r = merge_segsum_topk_ref(doc, con, **kw)
+    for (widths, mats, classes, out_v, _), _ in calls:
+        h, k = out_v.shape
+        args = (widths, mats, classes)
+
+        def fresh():  # result buffers as the search made them
+            return k2_out(h, k, out_v.device)
+
+        v_k, i_k = merge_segsum_topk_classes(*args, *fresh())
+        v_r, i_r = merge_segsum_topk_classes_ref(*args, *fresh())
         torch.cuda.synchronize()
-        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), kw
-        ms += cuda_ms(lambda: merge_segsum_topk(doc, con, **kw))
-        plain_ms += cuda_ms(lambda: merge_segsum_topk_ref(doc, con, **kw))
-        b, w = doc.shape
-        nbytes += b * w * 8 + b * kw["k"] * 8
-        ops += b * (w // 2) * merge_stages(w, kw["p"])
-        shapes.append(f"{b}x{w}")
-    return {"ms": ms, "plain_ms": plain_ms, "shapes": shapes,
-            "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
+        assert torch.equal(i_k, i_r) and torch.equal(v_k, v_r), "K2 replay"
+        assert (i_k[:, 0] >= 0).any(), "no hits at all: the replay is vacuous"
+        ms += k2_classes_launch_ms(*args, *fresh())
+        call_ms += cuda_ms(lambda: merge_segsum_topk_classes(*args, *fresh()))
+        plain_ms += cuda_ms(
+            lambda: merge_segsum_topk_classes_ref(*args, *fresh()), iters=3,
+            warmup=1)
+        if tool is not None:
+            first_ms += cuda_ms(tool.first_launches(first, widths, mats,
+                                                    classes, k), chain=10)
+        b, n = k2_bytes(classes, h, k)
+        nbytes += b
+        lanes += n
+        shapes.append(f"{sum(len(c[3]) for c in classes)} rows in "
+                      f"{len(classes)} classes (" + ", ".join(
+                          f"{len(c[3])}x{c[1]}x{c[0]}" for c in classes)
+                      + f"), k={k}")
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "first_ms": first_ms, "shapes": shapes, "lanes": int(lanes),
+            "bound": bound_ms(nbytes, lanes, FP32_OPS_S), "nbytes": nbytes}
 
 
 def k3_launch_ms(args) -> float:
@@ -1372,13 +1582,13 @@ def drive_wide(device: str, kernels=()) -> dict:
         qv, src = query_vectors(rng, emb_rows, BATCH_WIDE)
         batches.append((zipf_queries(rng, BATCH_WIDE, VOCAB_WIDE), qv, src))
     hard = [sum(map(is_hard, qs)) for qs, _, _ in batches]
-    calls = {n: [] for n in ("dense_topk", "merge_segsum_topk",
+    calls = {n: [] for n in ("dense_topk", "merge_segsum_topk_classes",
                              "merge_segsum_full_classes",
                              "combine_topk_classes")}
     t0 = time.perf_counter()
     with recording(dense_mod, "dense_topk", calls["dense_topk"]), \
-            recording(inverted_mod, "merge_segsum_topk",
-                      calls["merge_segsum_topk"]), \
+            recording(inverted_mod, "merge_segsum_topk_classes",
+                      calls["merge_segsum_topk_classes"]), \
             recording(inverted_mod, "merge_segsum_full_classes",
                       calls["merge_segsum_full_classes"]), \
             recording(inverted_mod, "combine_topk_classes",
@@ -1810,13 +2020,13 @@ def q8_standalone(kb, card: str) -> dict:
     return out
 
 
-# Each port kernel's device functions (K2' runs K2's body:
-# merge_segsum_kernel<PACKED, GATHER>; K1 has two bodies, dense_scan_sm90_kernel and
-# dense_scan_kernel; K5 two, dense_scan_q8_sm90_kernel<TQ> and
-# dense_scan_kernel<signed char>). dense_merge_kernel serves K1, K5 and K7
-# alike; it counts as K1's.
+# Each port kernel's device functions (K1 has two bodies,
+# dense_scan_sm90_kernel and dense_scan_kernel; K5 two,
+# dense_scan_q8_sm90_kernel<TQ> and dense_scan_kernel<signed char>).
+# dense_merge_kernel serves K1, K5 and K7 alike; it counts as K1's.
 PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
-                "dense_scan_sm90_kernel": "K1",
+                "dense_scan_sm90_kernel": "K1", "topk_rows_kernel": "K2",
+                "merge_segsum_kernel": "K2'",
                 "dense_scan_q8_sm90_kernel": "K5",
                 "full_rows_kernel": "K3", "combine_items_kernel": "K4",
                 "ivf_scan_kernel": "K6",
@@ -1830,11 +2040,6 @@ def port_kernel(name: str):
     """The port kernel (K1..K8) a device function belongs to, or None."""
     if re.match(r"dense_scan_kernel<\s*(signed char|char|int8_t)\s*>", name):
         return "K5"
-    m = re.match(r"merge_segsum_kernel<([^<>]*)>", name)
-    if m:
-        flags = [f.replace("(bool)", "").strip() in ("true", "1")
-                 for f in m.group(1).split(",")]
-        return "K2'" if flags[1] else "K2"
     return PORT_KERNELS.get(name.split("<")[0])
 
 
@@ -1994,24 +2199,23 @@ def main() -> int:
 
     # -- 3. K1 against its plain version --------------------------------------
     launch_counts["dense_topk_sm90"] = 0
-    err1, t3 = check_dense(BATCH, 131_072, N_DOCS, DIM, 8, runs=2,
-                           timed=True)
-    assert launch_counts["dense_topk_sm90"] >= 2, "K1 missed its wgmma body"
+    err1, t3 = check_dense(BATCH, 131_072, N_DOCS, DIM, 8, timed=True)
+    assert launch_counts["dense_topk_sm90"] >= 1, "K1 missed its wgmma body"
     log(f"[K1] b={BATCH} n_valid={N_DOCS}/131072 d={DIM} bf16 k=8: "
         f"max|dscore|={err1:.3e}; TMA + wgmma body {t3['ms']:.3f} ms, first "
         f"body {t3['first_ms']:.3f} ms, plain {t3['plain_ms']:.3f} ms, "
         f"torch.topk(q @ emb.T) {t3['lib_ms']:.3f} ms ({card})")
     for i, args in enumerate(SM90_SHAPES):
         before = launch_counts["dense_topk_sm90"]
-        err1 = max(err1, check_dense(*args, seed=10 + i, runs=2)[0])
-        assert launch_counts["dense_topk_sm90"] == before + 2, args
+        err1 = max(err1, check_dense(*args, seed=10 + i)[0])
+        assert launch_counts["dense_topk_sm90"] == before + 1, args
     err200, _ = check_dense(256, 20_480, 20_000, DIM, 200, seed=1,
                             first_body=True)
     errf32, _ = check_dense(64, 4096, 4000, 256, 40, torch.float32, seed=2)
     before = launch_counts["dense_topk_sm90"]
     err36, _ = check_dense(5, 300, 250, 36, 8, seed=3)  # unaligned D
     assert launch_counts["dense_topk_sm90"] == before, "D=36 took TMA"
-    log(f"[K1] TMA + wgmma body, {len(SM90_SHAPES)} shapes x 2 runs (b in "
+    log(f"[K1] TMA + wgmma body, {len(SM90_SHAPES)} shapes (b in "
         f"{{1, 8, 130, 512}}, D in {{64, 72, 1024}}, k in {{8, 31, 40, 64, "
         f"200, 600}}, n_valid < N): max|dscore|={err1:.3e}; first body: bf16 "
         f"k=200 {err200:.3e}, fp32 k=40 {errf32:.3e}, bf16 D=36 {err36:.3e}")
@@ -2019,19 +2223,28 @@ def main() -> int:
 
     # -- 4. K2 against its plain version --------------------------------------
     err2 = 0.0
+    before = launch_counts["merge_segsum_topk"]
     for p in (64, 256, 1024, 2048):
         for t in (1, 2, 8):
             for cbits in (14, 0):
-                e, _, _ = check_merge(256, t, p, cbits, seed=p * 10 + t)
+                e, _ = check_merge(256, t, p, cbits, seed=p * 10 + t, runs=2)
                 err2 = max(err2, e)
-    log(f"[K2] 24 classes (p x t x packed/unpacked) bit-identical to the "
-        f"plain version")
-    e, k2_ms, k2_plain_ms = check_merge(BATCH, 8, 2048, 14, timed=True)
-    e0, k2u_ms, k2u_plain_ms = check_merge(BATCH, 8, 2048, 0, timed=True)
-    err2 = max(err2, e, e0)
-    log(f"[K2] b={BATCH} t=8 p=2048 (W=16384) packed cbits=14: kernel "
-        f"{k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms; unpacked: kernel "
-        f"{k2u_ms:.3f} ms, plain {k2u_plain_ms:.3f} ms ({card})")
+    for name in K2_CASES:
+        check_topk_classes(name, runs=2)
+    assert launch_counts["merge_segsum_topk"] == before + 2 * (
+        24 + len(K2_CASES)), "K2's checks missed a launch"
+    log(f"[K2] 24 classes (p x t x packed/unpacked) of flipped rows and "
+        f"{len(K2_CASES)} slot-table cases ({', '.join(K2_CASES)}), each "
+        f"twice, bit-identical to the plain version ({card})")
+    k2_tool = load_tool("k2_anatomy")
+    k2_first = k2_tool.build_first(runtime.BUILD_DIR / "k2_first")
+    for cbits in (14, 0):
+        e, k2t = check_merge(BATCH, 8, 2048, cbits, first=k2_first)
+        err2 = max(err2, e)
+        log(f"[K2] b={BATCH} t=8 p=2048 (W=16384) "
+            f"{f'packed cbits={cbits}' if cbits else 'unpacked'}: kernel "
+            f"{k2t['ms']:.3f} ms, first body {k2t['first_ms']:.3f} ms, plain "
+            f"{k2t['plain_ms']:.3f} ms ({card})")
 
     # -- 4b. K3 against its plain version ---------------------------------------
     for name in K3_CASES:
@@ -2094,6 +2307,32 @@ def main() -> int:
     run = drive_slice("cuda", (dense_topk, merge_segsum_topk))
     for name, n in run["launches"].items():
         assert n > 0, f"{name} was not launched on the main path"
+    assert run["launches"]["merge_segsum_topk"] == 7, (
+        "K2 must launch exactly once per search (4 batches, 3 singles)")
+    k2s = replay_topk(run["calls"], k2_first)
+    log(f"[K2] one 100k request's launch ({'; '.join(k2s['shapes'])}) "
+        f"bit-identical to the plain version: kernel {k2s['ms']:.3f} ms (the "
+        f"wrapper's whole call {k2s['call_ms']:.3f} ms), the first body's "
+        f"per-class launches {k2s['first_ms']:.3f} ms, plain "
+        f"{k2s['plain_ms']:.3f} ms, bound {k2s['bound'][0]:.4f} ms "
+        f"({k2s['bound'][1]}: {k2s['nbytes'] / 1e6:.1f} MB; {k2s['lanes']} "
+        f"live lanes) ({card})")
+    prof = run["profile"]
+    if prof["busy_ms"] > 0:
+        log(f"[perf] 100k: one profiled request: wall {prof['wall_ms']:.2f} "
+            f"ms, device busy {prof['busy_ms']:.3f} ms, idle share "
+            f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}, "
+            f"{prof['ops']} device operations; busiest: "
+            + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
+        log("[perf] 100k: device ms by port kernel in the profiled request: "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items())
+            + f"; vectorized_gather_kernel {prof['gather_ms']:.3f} ms, "
+            f"elementwise {prof['elementwise_ms']:.3f} ms, copies "
+            f"{prof['copy_ms']:.3f} ms")
+    else:
+        log("[perf] 100k: device busy time not measured (the profiler "
+            "recorded no device events)")
+    del run["calls"]
 
     # -- 6. times -----------------------------------------------------------------
     p50 = statistics.median(run["lat_ms"])
@@ -2113,9 +2352,11 @@ def main() -> int:
         "K4 must launch exactly once per 1M request")
     assert launches["merge_segsum_full"] == 4, (
         "K3 must launch exactly once per 1M request")
+    assert launches["merge_segsum_topk"] == 4, (
+        "K2 must launch exactly once per 1M request")
     calls = wide["calls"]
     k1 = replay_dense(calls["dense_topk"])
-    k2 = replay_merge(calls["merge_segsum_topk"])
+    k2 = replay_topk(calls["merge_segsum_topk_classes"], k2_first)
     k3 = replay_full(calls["merge_segsum_full_classes"], k3_first)
     k4 = replay_combine(calls["combine_topk_classes"], k4_first)
     del calls, wide["calls"]
@@ -2127,10 +2368,13 @@ def main() -> int:
         f"body {k1['ms']:.3f} ms, first body {k1['first_ms']:.3f} ms, plain "
         f"{k1['plain_ms']:.3f} ms, torch.topk(q @ emb.T) {k1['lib_ms']:.3f} "
         f"ms, bound {k1['bound'][0]:.4f} ms ({k1['bound'][1]}) ({card})")
-    log(f"[K2] one request's {len(k2['shapes'])} launches on the 1M path "
-        f"({', '.join(k2['shapes'])}) bit-identical to the plain version: "
-        f"kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound "
-        f"{k2['bound'][0]:.4f} ms ({k2['bound'][1]}) ({card})")
+    log(f"[K2] one request's launch on the 1M path "
+        f"({'; '.join(k2['shapes'])}) bit-identical to the plain version: "
+        f"kernel {k2['ms']:.3f} ms (the wrapper's whole call "
+        f"{k2['call_ms']:.3f} ms), the first body's per-class launches "
+        f"{k2['first_ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound "
+        f"{k2['bound'][0]:.4f} ms ({k2['bound'][1]}: "
+        f"{k2['nbytes'] / 1e6:.1f} MB; {k2['lanes']} live lanes) ({card})")
     log(f"[K3] one request's launch on the 1M path "
         f"({'; '.join(k3['shapes'])}) bit-identical to the plain version: "
         f"kernel {k3['ms']:.3f} ms (the wrapper's whole call "
@@ -2155,7 +2399,8 @@ def main() -> int:
             + "; ".join(f"{n} {ms:.3f} ms" for n, ms in prof["top"]))
         log("[perf] 1M: device ms by port kernel in the profiled request: "
             + ", ".join(f"{n} {ms:.3f}" for n, ms in prof["port"].items())
-            + f"; K3 share {prof['port'].get('K3', 0.0) / prof['busy_ms']:.3f}"
+            + f"; K2 share {prof['port'].get('K2', 0.0) / prof['busy_ms']:.3f}"
+            f", K3 share {prof['port'].get('K3', 0.0) / prof['busy_ms']:.3f}"
             f", K4 share {prof['port'].get('K4', 0.0) / prof['busy_ms']:.3f}"
             f", vectorized_gather_kernel {prof['gather_ms']:.3f} ms (share "
             f"{prof['gather_ms'] / prof['busy_ms']:.3f}), elementwise "
@@ -2177,8 +2422,8 @@ def main() -> int:
     # -- 8. the int8 + IVF slice at 1M --------------------------------------------
     for i, args in enumerate(Q8_SHAPES):
         before = launch_counts["dense_scan_q8_sm90"]
-        check_q8(*args, seed=20 + i, runs=2)
-        assert launch_counts["dense_scan_q8_sm90"] == before + 2 * (
+        check_q8(*args, seed=20 + i)
+        assert launch_counts["dense_scan_q8_sm90"] == before + (
             args[3] % 16 == 0), f"K5's route at {args}"
     for args in ((B_IVF, 20_480, 20_000, DIM, 2 * K_IVF),
                  (512, 8192, 8000, DIM, 8), (3, 1000, 1000, 64, 600)):
@@ -2194,7 +2439,7 @@ def main() -> int:
                  (4, 30, 6, 36, 8, torch.bfloat16),
                  (6, 50, 10, 64, 12, torch.float32)):
         err6 = max(err6, check_ivf(*args, seed=args[0] + args[4]))
-    log(f"[K5] {len(Q8_SHAPES)} shapes x 2 runs (b 1-512, D in {{40, 48, "
+    log(f"[K5] {len(Q8_SHAPES)} shapes (b 1-512, D in {{40, 48, "
         f"1024, 4096}}, k 1-600, n_valid < N, k > n_valid; D=40 on the first "
         f"body, the rest on the wgmma body) and the first body at 3 aligned "
         f"shapes: bit-identical to the plain version; [K6] int8 "
@@ -2275,8 +2520,8 @@ def main() -> int:
     err7 = 0.0
     for i, args in enumerate(K7_SHAPES):
         before = launch_counts["dense_topk_co_sm90"]
-        err7 = max(err7, check_dense_co(*args, seed=20 + i, runs=2))
-        assert launch_counts["dense_topk_co_sm90"] == before + 2, args
+        err7 = max(err7, check_dense_co(*args, seed=20 + i))
+        assert launch_counts["dense_topk_co_sm90"] == before + 1, args
     before = launch_counts["dense_topk_co_sm90"]
     for args in ((7, 300, 300, 64, 8), (16, 5000, 4777, 128, 8),
                  (130, 2500, 2500, 96, 5), (3, 10, 4, 32, 8),
@@ -2293,7 +2538,7 @@ def main() -> int:
                check_dense_co(512, 20_480, 20_000, DIM, 8, seed=5,
                               first_body=True))
     assert launch_counts["dense_topk_co_sm90"] == before, "took the wgmma body"
-    log(f"[K7] Hopper body, {len(K7_SHAPES)} shapes x 2 runs (b in {{1, 8, "
+    log(f"[K7] Hopper body, {len(K7_SHAPES)} shapes (b in {{1, 8, "
         f"32, 33, 130, 512, 4160}}, n_valid in {{0, 5, 63, mid-tile}}, an "
         f"odd count of tiles, D in {{64, 1024, 1152, 1344}}, k in {{1, 8, "
         f"40, 200, 600}}), tests/test_dense.py's corpus-outer shapes, "
@@ -2429,7 +2674,7 @@ def main() -> int:
          "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
          "library_ms": k1["lib_ms"]},
         {"name": "merge_segsum_topk", "route": "cuda",
-         "source": "tpurag_torch/csrc/bm25_merge.cu",
+         "source": "tpurag_torch/csrc/bm25_topk.cu",
          "replaces": "tpurag/kernels/bm25_pallas.py:179",
          "launches": launches["merge_segsum_topk"], "max_abs_err": err2,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -1,9 +1,11 @@
 """tpurag_torch BM25 scoring against the JAX package.
 
 merge_segsum_topk_ref (the plain version of the CUDA merge kernel, and
-its CPU path) runs the Pallas kernel's network and sums, so it matches
-JAX's merge_segsum_topk in interpret mode: ids exactly, scores within
-1e-5 unpacked and 1e-6 relative packed (the same quantization).
+its CPU path) merges the term slots by (doc, slot) and sums each doc from
+its last slot down, where the Pallas kernel's bitonic network adds the
+same lanes in its own order, so it matches JAX's merge_segsum_topk in
+interpret mode to float32 rounding: ids exactly, scores within 1e-5
+unpacked and 1e-6 relative packed (the same quantization).
 
 InvertedIndex: the same texts go into both packages with
 packed_merge=False (JAX on the CPU scores through its unpacked sort

@@ -1,7 +1,8 @@
 """tpurag_torch's CSR BM25 top-k against the JAX package.
 
 bm25_topk_fused (K2''s wrapper; on the CPU its plain version: the CSR
-gather, odd terms flipped, K2's plain version) is held to JAX's
+gather, odd terms flipped, the Pallas kernel's bitonic network and
+window sums) is held to JAX's
 bm25_topk_fused, whose Pallas kernel runs in interpret mode here: ids
 exactly, scores within 1e-5 unpacked and 1e-6 relative packed, as in
 test_torch_bm25.py. The windows include clamped starts, zero lengths,
@@ -204,10 +205,10 @@ def test_segsum_and_fused_no_hits():
 
 
 @pytest.mark.parametrize("name,kernel", [
-    ("merge_segsum_kernel<false, false>", "K2"),
-    ("merge_segsum_kernel<(bool)1, (bool)0>", "K2"),
+    ("topk_rows_kernel", "K2"),
+    ("merge_segsum_kernel<(bool)1>", "K2'"),
     ("full_rows_kernel", "K3"),
-    ("merge_segsum_kernel<true, true>", "K2'"),
+    ("merge_segsum_kernel<true>", "K2'"),
     ("dense_co_scan_kernel<__nv_bfloat16, 64>", "K7"),
     ("dense_co_resident_c_kernel", "K7"),
     ("dense_co_resident_q_kernel", "K7"),
@@ -215,6 +216,6 @@ def test_segsum_and_fused_no_hits():
     ("dense_scan_kernel<__nv_bfloat16>", "K1"),
 ])
 def test_profile_names_map_to_port_kernels(name, kernel):
-    """chip_smoke's profile sums device time by port kernel; K2 and K2'
-    share one templated body."""
+    """chip_smoke's profile sums device time by port kernel: K2's body is
+    topk_rows_kernel, K2''s the templated merge_segsum_kernel<PACKED>."""
     assert chip_smoke.port_kernel(name) == kernel

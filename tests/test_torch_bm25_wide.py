@@ -484,11 +484,11 @@ def test_full_ref_order_is_doc_then_slot(cbits):
 def test_full_classes_plain_matches_assemble(name):
     """K3's descriptor form (on CPU tensors its plain version, which reads
     each slot's live lanes as the kernel does) against the flow it
-    replaces: index/inverted._assemble's gather of whole bucket rows and
-    merge_segsum_full_ref per class, narrow rows scattered at sel. The
-    cases hold empty slots, a slot wider than p_max, t = 1, w < p_max, an
-    all-parked row, W = 131072 and cbits 12 and 14."""
-    from tpurag_torch.index.inverted import _assemble
+    replaces: the JAX package's index/inverted._assemble gather of whole
+    bucket rows and merge_segsum_full_ref per class, narrow rows scattered
+    at sel. The cases hold empty slots, a slot wider than p_max, t = 1, w <
+    p_max, an all-parked row, W = 131072 and cbits 12 and 14."""
+    from tpurag.index.inverted import _assemble
 
     widths, mats, narrow, wide, h, wn_max = chip_smoke.k3_case(name,
                                                               device="cpu")
@@ -498,11 +498,13 @@ def test_full_classes_plain_matches_assemble(name):
     assert launch_counts["merge_segsum_full"] == before
     want_v = torch.full((h, wn_max), NEG_INF)
     want_d = torch.full((h, wn_max), _BIG, dtype=torch.int32)
+    jmats = [(jnp.asarray(d.numpy()), jnp.asarray(i.numpy()))
+             for d, i in mats]
     for i, (p_max, t, cbits, sel, bucketw, rowid, _, idf) in enumerate(
             [*narrow, *wide]):
-        doc, con = _assemble(torch.as_tensor(bucketw), torch.as_tensor(rowid),
-                             torch.as_tensor(idf), list(mats), p_max, t,
-                             list(widths))
+        doc, con = (torch.from_numpy(np.array(x)) for x in _assemble(
+            jnp.asarray(bucketw), jnp.asarray(rowid), jnp.asarray(idf), jmats,
+            p_max, t, list(widths)))
         g = doc.shape[0]
         seg, doc_s = merge_segsum_full_ref(doc.reshape(g, -1),
                                            con.reshape(g, -1), p_max, t,

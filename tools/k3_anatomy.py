@@ -156,25 +156,19 @@ def first_launches(fn, widths, mats, narrow, wide, h: int, wn_max: int):
 
 def first_flow(fn, widths, mats, narrow, wide, h: int, wn_max: int):
     """The flow the first body ran in (index/inverted.py before K3 took the
-    gather in): per class, pageable copies of the slot arrays, the gather
-    of index/inverted._assemble, the first body, and the narrow rows'
-    scatter into (h, wn_max) buffers."""
-    from tpurag_torch.index.inverted import _assemble
-
+    gather in): per class, pageable copies of the slot arrays, the row
+    gather (slot_rows, the plain version's, as index/inverted._assemble
+    did it), the first body, and the narrow rows' scatter into (h, wn_max)
+    buffers."""
     dev = mats[0][0].device
 
     def run():
         n_val = torch.full((h, wn_max), -3.0e38, device=dev)
         n_doc = torch.full((h, wn_max), 2**30, dtype=torch.int32, device=dev)
         for i, cls in enumerate([*narrow, *wide]):
-            p_max, t, cbits, sel, bucketw, rowid, _, idf = cls
-            used = [j for j, w in enumerate(widths)
-                    if (np.asarray(bucketw) == w).any()]
-            doc, con = _assemble(torch.as_tensor(bucketw, device=dev),
-                                 torch.as_tensor(rowid, device=dev),
-                                 torch.as_tensor(idf, device=dev),
-                                 [mats[j] for j in used], p_max, t,
-                                 [widths[j] for j in used])
+            p_max, t, cbits, sel, bucketw, rowid, live, idf = cls
+            doc, con = slot_rows(widths, mats, np.asarray(bucketw), rowid,
+                                 live, idf, p_max, t)
             g = doc.shape[0]
             seg, doc_s = first_full(fn, doc.reshape(g, -1).contiguous(),
                                     con.reshape(g, -1).contiguous(), p_max,

@@ -393,10 +393,13 @@ class KnowledgeBase:
         kb.dense = DenseIndex.load(d / "dense", device=device, quant=quant)
         kb.inverted = InvertedIndex.load(d / "inverted", kb.config.bm25,
                                          device=device)
-        kb.chunks = ChunkStore()
-        with open(d / meta["chunks_file"], encoding="utf-8") as f:
-            for line in f:
-                kb.chunks.append(Chunk(**json.loads(line)))
+        if meta.get("chunks_file"):
+            kb.chunks = ChunkStore()
+            with open(d / meta["chunks_file"], encoding="utf-8") as f:
+                for line in f:
+                    kb.chunks.append(Chunk(**json.loads(line)))
+        else:  # legacy inline-list saves
+            kb.chunks = ChunkStore.from_dicts(meta["chunks"])
         kb._doc_chunks = {k: [int(x) for x in v]
                           for k, v in meta["doc_chunks"].items()}
         if meta.get("ivf") == "single":

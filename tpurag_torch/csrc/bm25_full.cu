@@ -41,15 +41,16 @@
 //      lanes are the lists' last lanes before a) and one after (whether the
 //      item's last doc ends there), staged in shared memory by bulk copies
 //      of the 16-byte-aligned middles and plain loads of the edges
-//      (sm90.cuh); packed rows take the row max while the copies fly.
+//      (bm25_lists.cuh); packed rows take the row max while the copies fly.
 //   4. the lists merged in shared memory by a tree of two-way merge paths
-//      (lower slots first on equal docs), the sums taken at segment ends,
-//      and the lanes written out.
+//      (lower slots first on equal docs; bm25_lists.cuh, shared with K2),
+//      the sums taken at segment ends, and the lanes written out.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+#include "bm25_lists.cuh"
 #include "sm90.cuh"
 #include "topk.cuh"
 
@@ -59,16 +60,12 @@ constexpr int THREADS = 256;
 constexpr int HALF = THREADS / 2;  // threads of one split search
 constexpr int CHUNK = 4096;        // output lanes per work item
 constexpr int MAX_T = 512;         // term lists one row merges
-constexpr int BIG = 1 << 30;       // parked doc
-constexpr int PAD_KEY = 0x7fffffff;
+using termlists::BIG;
+using termlists::Mat;
+using termlists::PAD_KEY;
+using termlists::Slot;
 
-// The table the wrapper builds (kernels/bm25_merge._k3_table), in int64s.
-struct Mat {  // 4 int64
-  const int* doc;
-  const float* imp;
-  long long width;  // lanes per matrix row
-  long long unused;
-};
+// The table's rows (kernels/bm25_merge._k3_prepare), in int64s.
 struct Row {  // 8 int64
   float* seg;
   int* doc_s;
@@ -79,14 +76,7 @@ struct Row {  // 8 int64
   long long first_slot;
   long long unused;
 };
-struct Slot {  // 2 int64
-  int mat;
-  int row;
-  int len;  // lanes of the matrix row this slot merges, <= p_max; 0: empty
-  float scale;
-};
-static_assert(sizeof(Mat) == 32 && sizeof(Row) == 64 && sizeof(Slot) == 16,
-              "table layout");
+static_assert(sizeof(Row) == 64, "table layout");
 
 // One term list of the item's row, in shared memory.
 struct List {
@@ -120,38 +110,6 @@ __host__ __device__ constexpr size_t smem_bytes(int t_max) {
          sizeof(List) * t_max +
          (size_t)4 * (2 * (t_max + 1) + 4 * t_max + 2 * search_slots(t_max) +
                       2 * HALF);
-}
-
-// First index in [lo, hi) of the ascending row doc with doc[i] >= x.
-__device__ __forceinline__ int lower_bound(const int* doc, int lo, int hi,
-                                           int x) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (doc[mid] < x)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// Warp 0: exclusive prefix sums of n values into out[0, n], out[n] the
-// total.
-template <class Val>
-__device__ void warp_scan(int n, Val val, int* out) {
-  const int lane = threadIdx.x & 31;
-  int carry = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int v = base + lane < n ? val(base + lane) : 0;
-    int x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(tr::kFullMask, x, o);
-      if (lane >= o) x += y;
-    }
-    if (base + lane < n) out[base + lane] = carry + x - v;
-    carry += __shfl_sync(tr::kFullMask, x, 31);
-  }
-  if (lane == 0) out[n] = carry;
 }
 
 // The K-ary candidate c of the doc range [vlo, vhi).
@@ -217,7 +175,8 @@ __global__ void __launch_bounds__(THREADS)
       L.imp = mt.imp + (size_t)sl.row * mt.width;
     }
     int m = sl.len;
-    if (m > 0 && L.doc[m - 1] >= big) m = lower_bound(L.doc, 0, m, big);
+    if (m > 0 && L.doc[m - 1] >= big)
+      m = termlists::lower_bound(L.doc, 0, m, big);
     L.m = m;
     lists[s] = L;
     atomicAdd(&s_live, m);
@@ -266,7 +225,8 @@ __global__ void __launch_bounds__(THREADS)
       for (int q = gt; q < K * t; q += HALF) {
         const int c = q / t, s = q - c * t;
         const int v = candidate(vlo, vhi, c, K);
-        const int lb = lower_bound(lists[s].doc, g_ilo[s], g_ihi[s], v);
+        const int lb =
+            termlists::lower_bound(lists[s].doc, g_ilo[s], g_ihi[s], v);
         g_cnt[q] = lb;
         atomicAdd(&g_tot[c], lb);
       }
@@ -322,14 +282,16 @@ __global__ void __launch_bounds__(THREADS)
 
   // 3. Staging: list s's lanes [lo, b + (b < m)) at stage_off[s].
   if (tid < 32) {
-    warp_scan(t, [&](int s) {
+    termlists::warp_scan(t, [&](int s) {
       List& L = lists[s];
       L.lo = L.a - (L.a > 0);
       L.c = L.b + (L.b < L.m) - L.lo;
       return L.c;
     }, dense_off);
-    warp_scan(t, [&](int s) { return (lists[s].c + 6) & ~3; }, stage_off);
-    warp_scan(t, [&](int s) { return (int)(lists[s].a > 0); }, ilo);
+    termlists::warp_scan(
+        t, [&](int s) { return (lists[s].c + 6) & ~3; }, stage_off);
+    termlists::warp_scan(
+        t, [&](int s) { return (int)(lists[s].a > 0); }, ilo);
   }
   __syncthreads();
   const int n_all = dense_off[t];
@@ -339,35 +301,13 @@ __global__ void __launch_bounds__(THREADS)
     L.sd = stage_off[s] + sm90::staging(L.doc + L.lo, L.c).h;
     L.si = stage_off[s] + sm90::staging(L.imp + L.lo, L.c).h;
   }
-  if (tid == 0) {
-    uint32_t bytes = 0;
-    for (int s = 0; s < t; ++s) {
-      const List& L = lists[s];
-      if (L.c == 0) continue;
-      bytes += sm90::middle_bytes(sm90::staging(L.doc + L.lo, L.c)) +
-               sm90::middle_bytes(sm90::staging(L.imp + L.lo, L.c));
-    }
-    sm90::mbar_expect_tx(&bar, bytes);
-    for (int s = 0; s < t; ++s) {
-      const List& L = lists[s];
-      if (L.c == 0) continue;
-      sm90::bulk_middle(st_doc + stage_off[s], L.doc + L.lo,
-                        sm90::staging(L.doc + L.lo, L.c), &bar);
-      sm90::bulk_middle(st_imp + stage_off[s], L.imp + L.lo,
-                        sm90::staging(L.imp + L.lo, L.c), &bar);
-    }
-  }
-  // Each list's unaligned edges: 8 threads a list.
-  for (int q = tid; q < 8 * t; q += THREADS) {
-    const List& L = lists[q >> 3];
-    if (L.c == 0) continue;
-    const int* src = L.doc + L.lo;
-    sm90::plain_edges(st_doc + stage_off[q >> 3], src,
-                      sm90::staging(src, L.c), q & 7, 8);
-    const int* srci = reinterpret_cast<const int*>(L.imp + L.lo);
-    sm90::plain_edges(reinterpret_cast<int*>(st_imp) + stage_off[q >> 3],
-                      srci, sm90::staging(srci, L.c), q & 7, 8);
-  }
+  termlists::stage_ranges(
+      t,
+      [&](int s) {
+        const List& L = lists[s];
+        return termlists::Range{L.doc + L.lo, L.imp + L.lo, L.c};
+      },
+      stage_off, st_doc, st_imp, &bar);
 
   // Packed rows: the row max over every given lane (and 0 for the lanes
   // past them), while the copies fly.
@@ -416,40 +356,12 @@ __global__ void __launch_bounds__(THREADS)
   int* nxt_doc = st_doc;
   float* nxt_con = st_imp;
   for (int w = 1; w < t; w <<= 1) {
-    const int per = (n_all + THREADS - 1) / THREADS;
-    int x = min(tid * per, n_all);
-    const int x1 = min(x + per, n_all);
-    while (x < x1) {
-      int p = 0;  // the pair holding output lane x
-      for (int hi = (t - 1) / (2 * w); p < hi;) {
-        const int mid = (p + hi + 1) >> 1;
-        if (dense_off[2 * mid * w] <= x)
-          p = mid;
-        else
-          hi = mid - 1;
-      }
-      const int a0 = dense_off[2 * p * w];
-      const int a1 = dense_off[min(2 * p * w + w, t)];
-      const int b1 = dense_off[min(2 * p * w + 2 * w, t)];
-      const int na = a1 - a0, nb = b1 - a1;
-      const int diag = x - a0;
-      int i = max(0, diag - nb), hi = min(diag, na);
-      while (i < hi) {
-        const int mid = (i + hi) >> 1;
-        if (cur_doc[a0 + mid] <= cur_doc[a1 + diag - 1 - mid])
-          i = mid + 1;
-        else
-          hi = mid;
-      }
-      int jb = diag - i;
-      for (const int end = min(x1, b1); x < end; ++x) {
-        const bool from_a =
-            i < na && (jb >= nb || cur_doc[a0 + i] <= cur_doc[a1 + jb]);
-        const int src = from_a ? a0 + i++ : a1 + jb++;
-        nxt_doc[x] = cur_doc[src];
-        nxt_con[x] = cur_con[src];
-      }
-    }
+    termlists::merge_level(
+        n_all, t, w, dense_off, [&](int i) { return cur_doc[i]; },
+        [&](int x, int i) {
+          nxt_doc[x] = cur_doc[i];
+          nxt_con[x] = cur_con[i];
+        });
     __syncthreads();
     int* td = cur_doc;
     cur_doc = nxt_doc;
@@ -477,7 +389,7 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace
 
 // table: n_mats Mat, n_rows Row, n_slots Slot, then n_items int64 items
-// (row << 32 | output chunk), as kernels/bm25_merge._k3_table builds them;
+// (row << 32 | output chunk), as kernels/bm25_merge._k3_prepare builds them;
 // t_max: the most lists a row of the launch merges (<= MAX_T = 512, where
 // a block takes 149 KB of shared memory).
 extern "C" int tr_full_rows(const void* table, int n_mats, int n_rows,

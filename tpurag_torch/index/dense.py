@@ -13,7 +13,8 @@ A growable, padded (capacity, D) matrix on an explicit device:
   (kernels/quant.py), so final scores stay exact cosines;
 - save/load use the JAX package's on-disk format (``<path>.meta.json`` +
   ``<path>.emb.npy`` in the storage dtype; bf16 rows as a uint16 view),
-  so an index saved by either package loads in the other.
+  so an index saved by either package loads in the other; load also
+  reads the round-1 ``<path>.npz`` (fp32 rows and a JSON meta entry).
 
 The port updates the matrix in place (adds and deletes write rows of the
 existing tensor) where the JAX package rebuilt immutable arrays.
@@ -255,9 +256,18 @@ class DenseIndex:
     @classmethod
     def load(cls, path, device="cuda", quant: bool = False) -> "DenseIndex":
         """quant: rebuild the int8 sidecar after the rows load (it is
-        derived data, never saved)."""
+        derived data, never saved). Without a .meta.json, the round-1
+        format: one .npz of fp32 rows (`emb`) and a JSON `meta` entry."""
         path = pathlib.Path(path)
-        meta = json.loads((path.parent / (path.name + ".meta.json")).read_text())
+        meta_file = path.parent / (path.name + ".meta.json")
+        if not meta_file.exists():  # legacy round-1 .npz (fp32)
+            data = np.load(path.with_suffix(".npz"), allow_pickle=False)
+            meta = json.loads(str(data["meta"]))
+            emb = np.asarray(data["emb"], np.float32).reshape(-1, meta["dim"])
+            return cls.from_numpy(emb[:meta["n_active"]], dtype=meta["dtype"],
+                                  deleted=meta["deleted"], device=device,
+                                  quant=quant)
+        meta = json.loads(meta_file.read_text())
         if meta["n_shards"] != 1:
             raise not_ported("loading a sharded dense index (Queue 1, "
                              "'Sharding')")

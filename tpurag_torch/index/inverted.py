@@ -10,10 +10,12 @@ Device layout (same as the JAX package):
   width bucket, padded with doc=2^30 / impact=0; row 0 is the pad row;
 - queries are width-classed: each query runs at the max bucket width of
   its own terms, rounded up to BM25Config.width_ladder;
-- scoring tail = bitonic merge + T-window segment sum + top-k, the fused
-  kernel of kernels/bm25_merge.py (K2: CUDA kernel on the card, its plain
-  version on the CPU); rows wider than its limit take
-  kernels/bm25.segsum_topk_candidates;
+- scoring tail = merge + segment sum + top-k of every class of a search in
+  one call that reads the bucket rows' live lanes itself
+  (kernels/bm25_merge.merge_segsum_topk_classes, K2: one CUDA launch per
+  search on the card, its plain version on the CPU), each query's result
+  written straight into the search's (B, k) buffers; classes wider than
+  its limit take kernels/bm25.segsum_topk_candidates;
 - queries holding a term whose bucket is wider than ``wide_term_width``
   split additively: their narrow terms and their wide terms each merge
   into full doc-sorted rows of per-doc partial sums, every class of the
@@ -27,9 +29,9 @@ Device layout (same as the JAX package):
 
 Mutability: adds after the first build land in a TAIL segment; deletes
 tombstone ids (candidate overfetch + filter); compact() rebuilds.
-The wide path's class tables reach the card as one non-blocking copy
-from pinned memory per kernel, so a search queues its work without
-waiting on the device.
+The class tables reach the card as one non-blocking copy from pinned
+memory per kernel, so a search queues its work without waiting on the
+device.
 
 save/load use the JAX package's ``.npz`` format.
 """
@@ -37,6 +39,7 @@ save/load use the JAX package's ``.npz`` format.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import pathlib
@@ -50,9 +53,10 @@ from tpurag_torch.core.config import BM25Config
 from tpurag_torch.ingest.tokenizer import tokenize, tokenize_query
 from tpurag_torch.kernels.bm25 import rank_compat, segsum_topk_candidates
 from tpurag_torch.kernels.bm25_join import combine_topk_classes
-from tpurag_torch.kernels.bm25_merge import (flip_odd_blocks, merge_ok,
+from tpurag_torch.kernels.bm25_merge import (merge_ok,
                                              merge_segsum_full_classes,
-                                             merge_segsum_topk)
+                                             merge_segsum_topk_classes,
+                                             slot_rows)
 from tpurag_torch.kernels.runtime import NEG_INF, round_up
 from tpurag_torch.kernels.topk import merge_topk
 
@@ -80,68 +84,6 @@ def full_cbits(w: int, t: int, cbits: int) -> int:
     if w <= 1 << 14 or (w <= 1 << 15 and (cbits > 0 or t >= 4)):
         return cbits
     return 0
-
-
-def _assemble(bucketw, rowid, idf, mats, p_max: int, t: int, widths):
-    """Gather (g, t, p_max) candidate (doc, idf*impact) tensors from the
-    bucket matrices: each term slot's P-block plain doc-ascending,
-    invalid lanes parked at doc=2^30 / contribution 0. bucketw/rowid/idf
-    are (g, t) tensors on the matrices' device; `widths` lists only the
-    buckets some slot uses."""
-    g = bucketw.shape[0]
-    dev = bucketw.device
-    doc = torch.full((g, t, p_max), _BIG, dtype=torch.int32, device=dev)
-    con = torch.zeros((g, t, p_max), dtype=torch.float32, device=dev)
-    for w, (doc_mat, imp_mat) in zip(widths, mats):
-        if w > p_max:
-            continue
-        mask = bucketw == w
-        rows = torch.where(mask, rowid, 0).long()
-        d = doc_mat[rows]                                # (g, t, w)
-        im = imp_mat[rows]
-        if w < p_max:
-            d = torch.nn.functional.pad(d, (0, p_max - w), value=_BIG)
-            im = torch.nn.functional.pad(im, (0, p_max - w))
-        doc = torch.where(mask[:, :, None], d, doc)
-        con = torch.where(mask[:, :, None], im, con)
-    con = idf[:, :, None] * con
-    return doc, con
-
-
-def _bucket_score(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
-                  layout: "_Layout", k: int, p_max: int, t: int,
-                  cbits: int = 0):
-    """Assemble (g, t, p_max) candidates from the bucket matrices by row
-    gather, apply idf, flip odd term slots, and run the scoring tail.
-
-    bucketw/rowid/idf: (g, t) host arrays per query-term slot (bucketw 0
-    = empty slot)."""
-    doc, con = _class_rows(bucketw, rowid, idf, layout, p_max, t)
-    g = bucketw.shape[0]
-    doc = doc.reshape(g, t * p_max).contiguous()
-    con = con.reshape(g, t * p_max).contiguous()
-    if t > 1:
-        doc = flip_odd_blocks(doc, p_max, t)
-        con = flip_odd_blocks(con, p_max, t)
-    if merge_ok(t * p_max):
-        return merge_segsum_topk(doc, con, k=k,
-                                 p=p_max if t > 1 else t * p_max, t=t,
-                                 cbits=cbits)
-    return segsum_topk_candidates(doc, con, k=k)
-
-
-def _class_rows(bucketw: np.ndarray, rowid: np.ndarray, idf: np.ndarray,
-                layout: "_Layout", p_max: int, t: int):
-    """One class's (g, t, p_max) candidate rows, each term slot's P-block
-    plain doc-ascending."""
-    used = set(np.unique(bucketw).tolist())
-    pairs = [(w, m) for w, m in zip(layout.widths, layout.mats) if w in used]
-    dev = layout.device
-    return _assemble(torch.as_tensor(bucketw, device=dev),
-                     torch.as_tensor(rowid, device=dev),
-                     torch.as_tensor(idf, device=dev),
-                     [m for _, m in pairs], p_max, t,
-                     [w for w, _ in pairs])
 
 
 def wide_flow(n_classes, w_classes, h: int, kk: int, wn_max: int,
@@ -471,13 +413,47 @@ class InvertedIndex:
         ids[sel] = i[:, :kk]
         return scores, ids
 
+    def _slot_arrays(self, rows: list[list[int]], t: int,
+                     layout: _Layout):
+        """(bucketw, rowid, live, idf): (len(rows), t) host arrays of each
+        query's term slots in this layout (bucket width, 0 = empty, for a
+        term absent from it; matrix row, +1 past the pad row; postings;
+        idf), t >= the longest row."""
+        n = len(rows)
+        lens = np.fromiter(map(len, rows), np.int64, n)
+        tid = np.full((n, t), -1, np.int64)
+        pos = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                     lens)
+        tid[np.repeat(np.arange(n), lens), pos] = np.fromiter(
+            itertools.chain.from_iterable(rows), np.int64, len(pos))
+        tb = layout.term_bucket
+        v = len(tb)  # terms born after this layout was built are absent
+        safe = np.where((tid >= 0) & (tid < v), tid, 0)
+        ok = (tid >= 0) & (tid < v) & (tb[safe] > 0)
+        # df counts dead postings until compaction; clamp to the live doc
+        # count so Okapi idf stays positive (one math.log per term, as the
+        # JAX package takes it).
+        df_live = max(self.n_docs, 1)
+        terms = np.unique(tid[ok])
+        idf_t = np.array(
+            [math.log(1.0 + (df_live - df + 0.5) / (df + 0.5)) for df in
+             (min(len(self._postings_doc[x]), df_live) for x in terms)],
+            np.float32)
+        idf = np.zeros((n, t), np.float32)
+        idf[ok] = idf_t[np.searchsorted(terms, tid[ok])]
+        return (np.where(ok, tb[safe], 0).astype(np.int32),
+                np.where(ok, layout.term_row[safe] + 1, 0).astype(np.int32),
+                np.where(ok, layout.term_len[safe], 0).astype(np.int32), idf)
+
     def _score_classed(self, rows: list[list[int]], kk: int,
                        layout: _Layout, scores, ids, members_map):
-        """The classed fused path: scatter results into (scores, ids) at
-        members_map positions."""
+        """The classed path for queries without wide terms: every class in
+        one merge_segsum_topk_classes call (one K2 launch), each query's
+        top-kk written into its members_map row of (scores, ids); classes
+        past the kernel's MAX_MERGE_LANES take segsum_topk_candidates."""
         bsz = len(rows)
         ladder = tuple(sorted(self.config.width_ladder or ()))
-        tb, tr = layout.term_bucket, layout.term_row
+        tb = layout.term_bucket
         v = len(tb)
 
         def row_pmax(tids):
@@ -498,37 +474,26 @@ class InvertedIndex:
                        _next_pow2(max((len(r) for r in rows), default=1)))
                       : list(range(bsz))}
 
-        df_live = max(self.n_docs, 1)
         cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
+        slots = self._slot_arrays(rows, max(t for _, t in groups), layout)
+        out_rows = np.asarray(members_map, np.int64)
+        fused, sorted_ = [], []
         for (p_max, t_max), members in groups.items():
+            m = np.asarray(members, np.int64)
+            spec = (p_max, t_max, cbits, out_rows[m],
+                    *(x[m, :t_max] for x in slots))
+            (fused if merge_ok(t_max * p_max) else sorted_).append(spec)
+        merge_segsum_topk_classes(layout.widths, layout.mats, fused, scores,
+                                  ids)
+        for p_max, t_max, _, sel, bucketw, rowid, live, idf in sorted_:
+            doc, con = slot_rows(layout.widths, layout.mats, bucketw, rowid,
+                                 live, idf, p_max, t_max)
             # A class can't yield more candidates than it has lanes.
-            k_eff = min(kk, t_max * p_max)
-            g = len(members)
-            bucketw = np.zeros((g, t_max), np.int32)
-            rowid = np.zeros((g, t_max), np.int32)
-            idf = np.zeros((g, t_max), np.float32)
-            for gi, bi in enumerate(members):
-                for ti, tid in enumerate(rows[bi]):
-                    if tid >= v or tb[tid] == 0:
-                        continue  # term absent from this segment
-                    bucketw[gi, ti] = tb[tid]
-                    rowid[gi, ti] = tr[tid] + 1  # +1: row 0 = pad
-                    # df counts dead postings until compaction; clamp to
-                    # the live doc count so Okapi idf stays positive.
-                    df = min(len(self._postings_doc[tid]), df_live)
-                    idf[gi, ti] = math.log(
-                        1.0 + (df_live - df + 0.5) / (df + 0.5))
-            s, i = _bucket_score(bucketw, rowid, idf, layout, k=k_eff,
-                                 p_max=p_max, t=t_max, cbits=cbits)
-            if s.shape[1] < kk:
-                s = torch.nn.functional.pad(s, (0, kk - s.shape[1]),
-                                            value=NEG_INF)
-                i = torch.nn.functional.pad(i, (0, kk - i.shape[1]),
-                                            value=-1)
-            sel = torch.as_tensor([members_map[bi] for bi in members],
-                                  dtype=torch.long, device=self.device)
-            scores[sel] = s[:, :kk]
-            ids[sel] = i[:, :kk]
+            s, i = segsum_topk_candidates(doc, con,
+                                          k=min(kk, t_max * p_max))
+            sel = torch.as_tensor(sel, device=self.device)
+            scores[sel, :s.shape[1]] = s
+            ids[sel, :i.shape[1]] = i
         return scores, ids
 
     def _score_wide(self, narrow_rows: list[list[int]],
@@ -541,13 +506,8 @@ class InvertedIndex:
         not pad the query's narrow terms to 32768 lanes."""
         h = len(narrow_rows)
         ladder = tuple(sorted(self.config.width_ladder or ()))
-        tb, tr, tl = layout.term_bucket, layout.term_row, layout.term_len
+        tb = layout.term_bucket
         cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
-        df_live = max(self.n_docs, 1)
-
-        def idf_of(tid):
-            df = min(len(self._postings_doc[tid]), df_live)
-            return math.log(1.0 + (df_live - df + 0.5) / (df + 0.5))
 
         def row_pmax_n(tids):
             p = max((int(tb[t]) for t in tids), default=16)
@@ -557,21 +517,13 @@ class InvertedIndex:
             return p
 
         def class_list(groups, rows_of):
+            slots = self._slot_arrays(rows_of, max(t for _, t in groups),
+                                      layout)
             out = []
             for (p_max, t_max), members in groups.items():
-                g = len(members)
-                bucketw = np.zeros((g, t_max), np.int32)
-                rowid = np.zeros((g, t_max), np.int32)
-                live = np.zeros((g, t_max), np.int32)
-                idf = np.zeros((g, t_max), np.float32)
-                for gi, hi in enumerate(members):
-                    for ti, tid in enumerate(rows_of[hi]):
-                        bucketw[gi, ti] = tb[tid]
-                        rowid[gi, ti] = tr[tid] + 1  # +1: row 0 = pad
-                        live[gi, ti] = tl[tid]
-                        idf[gi, ti] = idf_of(tid)
-                out.append((p_max, t_max, np.asarray(members, np.int64),
-                             bucketw, rowid, live, idf))
+                m = np.asarray(members, np.int64)
+                out.append((p_max, t_max, m,
+                            *(x[m, :t_max] for x in slots)))
             return out
 
         # Narrow side: full rows scattered into one (h, wn_max) buffer so

@@ -1,43 +1,40 @@
-# Ported from tpurag/kernels/bm25_pallas.py (merge_segsum_topk and
-# merge_segsum_full, the two forms of _merge_segsum_kernel, and
-# pallas_merge_ok).
-"""Fused BM25 merge + segment sum: top-k (K2) and full rows (K3).
+# Ported from tpurag/kernels/bm25_pallas.py (merge_segsum_topk,
+# merge_segsum_full and bm25_topk_fused, the forms of _merge_segsum_kernel,
+# and pallas_merge_ok).
+"""Fused BM25 merge + segment sum: top-k (K2, K2') and full rows (K3).
 
-Per candidate row (one query): a bitonic merge of T doc-sorted P-blocks,
-a T-window shift-add segment sum, then either a k-pass top-k
-(``merge_segsum_topk``, K2) or the full doc-sorted row with each doc's
-partial sum at its segment-end lane (``merge_segsum_full``, K3, the
-input of the exact narrow+wide combine in kernels/bm25_join.py). On a
-CUDA tensor each wrapper launches its hand-written kernel
-(csrc/bm25_merge.cu); on a CPU tensor it runs its plain version
-(``*_ref``), which is the same network and the same sums in plain torch
-(bit-identical to the JAX package's Pallas kernel in interpret mode).
+Per query row, t doc-sorted term lists (at most one lane per doc in each)
+merge into one doc-sorted row and each doc's contributions are summed;
+then either the top-k (K2: ``merge_segsum_topk_classes``, one launch for
+every narrow class of a search, csrc/bm25_topk.cu) or the full row with
+each doc's partial sum at its segment-end lane (K3:
+``merge_segsum_full_classes``, csrc/bm25_full.cu, the input of the exact
+narrow+wide combine in kernels/bm25_join.py). Both read the lists straight
+from the bucket matrices through a table of slots, and merge by (doc,
+slot): a doc's sum starts at its last slot's contribution and adds the
+earlier ones going down. The JAX package's Pallas kernel merges with a
+bitonic network instead, which adds the same lanes in its own order
+(scores agree to float32 rounding). On a CUDA tensor each wrapper
+launches its hand-written kernel; on a CPU tensor it runs its plain
+version (``*_ref``): a stable sort by (doc, slot) and the same sums, bit
+for bit.
 
-merge_segsum_topk's input contract (prepared by
-index/inverted.py:_bucket_score):
-- doc (B, W) int32, con (B, W) float32, W = T*P with T, P powers of two;
-- each P-block ascending by doc for even block index, DESCENDING for odd
-  (the caller flips odd terms), so each 2P block is bitonic and the
-  network starts at size 2P; for T == 1 the caller passes p = W and the
-  row is already sorted;
-- invalid lanes parked at doc = 2^30 with contribution 0.
+cbits > 0 quantises each contribution as the JAX package's packed layout
+does: q = round(con / max(rowmax, 1e-30) * qmax), qmax = 2^cbits - 1,
+half-to-even rounding, q clamped to [0, qmax] as an integer, summed as
+q * (max(rowmax, 1e-30) / qmax); docs >= (2^31 - 1) >> cbits park.
 
-cbits > 0 packs (doc, quantized contribution) into one int32 key,
-key = doc << cbits | q, q = round(con / max(rowmax, 1e-30) * qmax),
-qmax = 2^cbits - 1, half-to-even rounding, q clamped to [0, qmax] as an
-integer; lanes whose doc does not fit
-become the pad key 2^31 - 1. The network then moves one array instead
-of two; the sums use q * (max(rowmax, 1e-30) / qmax).
+``merge_segsum_topk`` and ``merge_segsum_full`` take candidate rows
+instead, (B, t*p) doc / con of t P-blocks (invalid lanes parked at doc
+2^30 with contribution 0, each block doc-ascending; merge_segsum_topk's
+odd blocks DESCENDING, the Pallas kernel's input) and run the same
+kernels on them through a one-class table. K3's t == 1 rows come back as
+(where(doc < 2^30, con, NEG_INF), doc) without a launch.
 
-merge_segsum_full takes the P-blocks plain ascending (the kernel flips
-the odd ones as it loads them); t == 1 rows are already sorted with
-unique docs and come back as (where(doc < 2^30, con, NEG_INF), doc)
-without a launch.
-
-``bm25_topk_fused`` (K2') is K2 fed straight from CSR postings: the
-kernel gathers each query's term windows itself (kernels/bm25.
-gather_candidates, odd terms flipped), so the candidate rows never reach
-device memory.
+``bm25_topk_fused`` (K2') keeps the TPU kernel's form: the bitonic
+network of T gathered CSR windows (odd terms flipped), the T-window sum
+and a top-k (csrc/bm25_merge.cu), the gather done by the kernel itself so
+the candidate rows never reach device memory.
 """
 
 from __future__ import annotations
@@ -55,11 +52,17 @@ from tpurag_torch.kernels.topk import select_topk
 _BIG = 2**30
 _PAD_KEY = 2**31 - 1
 
-# Widest candidate row the fused kernel takes: 16384 lanes are 128 KB of
-# shared memory unpacked (doc + con), 64 KB packed. The JAX package has
-# the same boundary (PALLAS_MAX_MERGE_LANES), so both packages route the
-# same queries; wider rows take kernels/bm25.segsum_topk_candidates.
+# Widest row K2 and K2' take: 16384 live lanes fit one block's shared
+# memory (8 bytes a lane staged, 4 for the merge orders). The JAX package
+# has the same boundary (PALLAS_MAX_MERGE_LANES), so both packages route
+# the same queries; wider rows take kernels/bm25.segsum_topk_candidates.
 MAX_MERGE_LANES = 1 << 14
+# K2 (csrc/bm25_topk.cu): the most slots a row holds, a block's most
+# threads, and its most dynamic shared memory (sm90.cuh's MAX_SMEM less 1 KB
+# for the kernel's own).
+_K2_MAX_T = MAX_MERGE_LANES // 16
+_K2_THREADS = 1024
+_K2_SMEM = 232448 - 1024
 # K3 (csrc/bm25_full.cu): output lanes per work item, and the most term
 # slots one full row merges.
 _K3_CHUNK = 4096
@@ -87,12 +90,13 @@ def _pack(doc: torch.Tensor, con: torch.Tensor, cbits: int):
     return key, safe / torch.full_like(safe, qmax)
 
 
-def _merge_rows(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
-                cbits: int):
-    """The kernels' network and sums: bitonic merge from block size 2p up
-    to W, then the t-window segment sum. Returns (seg, doc_s, big): seg
-    holds each doc's sum at its segment-end lane, NEG_INF elsewhere;
-    doc_s is the merged doc row; lanes with doc_s >= big are parked."""
+def _bitonic_rows(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
+                  cbits: int):
+    """K2''s network and sums: bitonic merge of flipped rows from block
+    size 2p up to W, then the t-window segment sum. Returns (seg, doc_s,
+    big): seg holds each doc's sum at its segment-end lane, NEG_INF
+    elsewhere; doc_s is the merged doc row; lanes with doc_s >= big are
+    parked."""
     b, w = doc.shape
     lane = torch.arange(w, device=doc.device)
     if cbits:
@@ -141,13 +145,31 @@ def _window_sums(doc_s: torch.Tensor, con_s: torch.Tensor, t: int, big: int):
     return torch.where(is_end & (doc_s < big), total, NEG_INF)
 
 
-def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
-                          p: int, t: int = 1, cbits: int = 0):
-    """Plain version of the fused kernel (same network, same sums)."""
-    seg, doc_s, _ = _merge_rows(doc, con, p, t, cbits)
+def _topk_positive(seg: torch.Tensor, doc_s: torch.Tensor, k: int):
+    """select_topk of the segment sums, scores <= 0 as (NEG_INF, -1)."""
     vals, ids = select_topk(seg, doc_s, k)
     empty = vals <= 0.0
     return torch.where(empty, NEG_INF, vals), torch.where(empty, -1, ids)
+
+
+def _bitonic_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
+                      t: int, cbits: int):
+    """K2''s top-k over flipped rows: its network, its window sums (the
+    JAX package's T-window rule, kept on unsorted windows too) and
+    select_topk, which takes each doc once."""
+    seg, doc_s, _ = _bitonic_rows(doc, con, p, t, cbits)
+    return _topk_positive(seg, doc_s, k)
+
+
+def merge_segsum_topk_ref(doc: torch.Tensor, con: torch.Tensor, k: int,
+                          p: int, t: int = 1, cbits: int = 0):
+    """Plain version of K2 on flipped candidate rows (merge_segsum_topk's
+    input): the odd blocks turned back, the rows merged and summed as
+    merge_segsum_full_ref does (packed when cbits > 0, at t == 1 too), and
+    the top-k of the positive sums."""
+    if t > 1:
+        doc, con = flip_odd_blocks(doc, p, t), flip_odd_blocks(con, p, t)
+    return _topk_positive(*_sorted_sums(doc, con, t, cbits), k)
 
 
 def flip_odd_blocks(x: torch.Tensor, p: int, t: int) -> torch.Tensor:
@@ -162,14 +184,21 @@ def flip_odd_blocks(x: torch.Tensor, p: int, t: int) -> torch.Tensor:
 def merge_segsum_full_ref(doc: torch.Tensor, con: torch.Tensor, p: int,
                           t: int = 1, cbits: int = 0):
     """Plain version of K3: the (seg, doc_s) full rows of
-    ``merge_segsum_full``. The t P-blocks (each plain doc-ascending) merge
-    by (doc, slot), a stable sort of the concatenated row by doc with the
-    parked lanes (doc >= big: 2^30, or (2^31 - 1) >> cbits when packed) at
-    the end; each doc's sum is the t-window sum at its segment-end lane (its
-    last slot's contribution first, then the earlier slots'). Packed rows
-    (cbits > 0) sum the quantised contributions of ``_pack``."""
+    ``merge_segsum_full`` (``_sorted_sums``; t == 1 rows, already merged,
+    as they are and never packed)."""
     if t == 1:
         return torch.where(doc < _BIG, con, NEG_INF), doc
+    return _sorted_sums(doc, con, t, cbits)
+
+
+def _sorted_sums(doc: torch.Tensor, con: torch.Tensor, t: int, cbits: int):
+    """(seg, doc_s) of (B, W) rows of t doc-ascending slots (parked lanes
+    anywhere): the rows merged by (doc, slot), a stable sort of the row by
+    doc with the parked lanes (doc >= big: 2^30, or (2^31 - 1) >> cbits
+    when packed) at the end; each doc's sum is the t-window sum at its
+    segment-end lane (its last slot's contribution first, then the earlier
+    slots'). Packed rows (cbits > 0) sum the quantised contributions of
+    ``_pack``; doc_s holds 2^30 at parked lanes."""
     big = _PAD_KEY >> cbits if cbits else _BIG
     if cbits:
         key, scale = _pack(doc, con, cbits)
@@ -182,9 +211,11 @@ def merge_segsum_full_ref(doc: torch.Tensor, con: torch.Tensor, p: int,
 
 def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
                       t: int = 1, cbits: int = 0):
-    """(B, k) BM25 top-k (scores, ids) of candidate rows, empties as
-    (NEG_INF, -1). CPU tensors take the plain version; CUDA tensors launch
-    the kernel (csrc/bm25_merge.cu) or raise."""
+    """(B, k) BM25 top-k (scores, ids) of flipped candidate rows (the
+    module's contract: t P-blocks, the odd ones descending; W = t * p),
+    empties as (NEG_INF, -1). CPU tensors take the plain version; CUDA
+    tensors turn the odd blocks back and launch K2 (csrc/bm25_topk.cu) with
+    one class whose slots are the P-blocks at scale 1.0, or raise."""
     if doc.device.type == "cpu":
         return merge_segsum_topk_ref(doc, con, k, p, t, cbits)
     if doc.device.type != "cuda":
@@ -197,28 +228,19 @@ def merge_segsum_topk(doc: torch.Tensor, con: torch.Tensor, k: int, p: int,
     if not (doc.is_contiguous() and con.is_contiguous()):
         raise ValueError("merge_segsum_topk: inputs must be contiguous")
     b, w = doc.shape
-    if w & (w - 1) or p & (p - 1) or w % p or t < 1 or w % t:
+    if p < 1 or p & (p - 1) or t < 1 or t & (t - 1) or w != t * p:
         raise ValueError(f"merge_segsum_topk: W={w}, p={p}, t={t} must be "
-                         "powers of two with p | W")
+                         "powers of two with W = t*p")
     if not merge_ok(w):
         raise ValueError(f"merge_segsum_topk: W={w} > {MAX_MERGE_LANES} lanes")
-    if not 1 <= k <= w or not 0 <= cbits <= 30:
+    if k < 1 or not 0 <= cbits <= 30:
         raise ValueError(f"merge_segsum_topk: bad k={k} or cbits={cbits}")
+    if t > 1:
+        doc, con = flip_odd_blocks(doc, p, t), flip_odd_blocks(con, p, t)
     out_v = torch.empty((b, k), dtype=torch.float32, device=doc.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=doc.device)
-    if b == 0:
-        return out_v, out_i
-    fn = load_kernels().tr_merge_segsum_topk
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    err = fn(doc.data_ptr(), con.data_ptr(), b, w, p, t, cbits, k,
-             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(doc.device))
-    check_launch(err, "merge_segsum_topk")
-    launch_counts["merge_segsum_topk"] += 1
-    return out_v, out_i
+    widths, mats, spec = block_classes(doc, con, p, t, cbits)
+    return merge_segsum_topk_classes(widths, mats, [spec], out_v, out_i)
 
 
 def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
@@ -250,23 +272,22 @@ def merge_segsum_full(doc: torch.Tensor, con: torch.Tensor, p: int,
     if b == 0:
         return (torch.empty((0, w), dtype=torch.float32, device=doc.device),
                 torch.empty((0, w), dtype=torch.int32, device=doc.device))
-    _, _, (full,) = merge_segsum_full_classes(*block_classes(doc, con, p, t,
-                                                              cbits))
+    widths, mats, spec = block_classes(doc, con, p, t, cbits)
+    _, _, (full,) = merge_segsum_full_classes(widths, mats, [], [spec], 0, 0)
     return full
 
 
 def block_classes(doc: torch.Tensor, con: torch.Tensor, p: int, t: int,
                   cbits: int = 0):
-    """merge_segsum_full_classes's arguments for (B, t*p) rows of P-blocks:
-    one wide class whose slot s of row i is block s of row i (a matrix row
-    of p lanes, all of them given: the kernel finds where each block's
-    parked lanes start), at scale 1.0."""
+    """(widths, mats, class) for (B, t*p) rows of plain doc-ascending
+    P-blocks: one class whose slot s of row i is block s of row i (a matrix
+    row of p lanes, all of them given: the kernels find where each block's
+    parked lanes start), at scale 1.0, its rows in order (sel = 0 .. B-1)."""
     b = doc.shape[0]
     blocks = np.arange(b * t, dtype=np.int32).reshape(b, t)
-    spec = (p, t, cbits, None, np.full((b, t), p, np.int32), blocks,
+    spec = (p, t, cbits, np.arange(b), np.full((b, t), p, np.int32), blocks,
             np.full((b, t), p, np.int32), np.ones((b, t), np.float32))
-    return ((p,), ((doc.view(b * t, p), con.view(b * t, p)),), [], [spec], 0,
-            0)
+    return (p,), ((doc.view(b * t, p), con.view(b * t, p)),), spec
 
 
 def slot_rows(widths, mats, bucketw, rowid, live, idf, p_max: int, t: int):
@@ -318,19 +339,63 @@ def merge_segsum_full_classes_ref(widths, mats, narrow, wide, h: int,
     return n_val, n_doc, [rows_of(cls) for cls in wide]
 
 
+def _slot_table(widths, mats, classes):
+    """The matrix and slot entries of K2's and K3's tables
+    (csrc/bm25_lists.cuh), for the classes' slots in order: per bucket
+    matrix a Mat (doc and impact pointers, width: (n_mats, 4) int64), per
+    (row, slot) a Slot (matrix, matrix row, live lanes, idf: (n_slots, 4)
+    int32, all 0 but idf for an empty slot). A slot is empty when its width
+    is 0 or above its class's p_max; its live lanes are clipped to its
+    width."""
+    p_max, t = (np.array([c[i] for c in classes], np.int64) for i in (0, 1))
+    g = np.array([len(c[4]) for c in classes], np.int64)
+    cls = np.repeat(np.arange(len(classes)), g)
+
+    def flat(i, dtype):
+        return np.concatenate([np.asarray(c[i], dtype).reshape(-1)
+                               for c in classes])
+
+    bw = flat(4, np.int64)
+    used = (bw > 0) & (bw <= np.repeat(p_max[cls], t[cls]))
+    warr = np.asarray(widths, np.int64)
+    order = np.argsort(warr)
+    widx = order[np.clip(np.searchsorted(warr[order], bw), 0, len(warr) - 1)]
+    if (used & (warr[widx] != bw)).any():
+        raise ValueError(f"merge_segsum: slot width "
+                         f"{int(bw[used & (warr[widx] != bw)][0])} has no "
+                         "bucket matrix")
+    slots = np.zeros((len(bw), 4), np.int32)
+    slots[:, 0] = np.where(used, widx, 0)
+    slots[:, 1] = np.where(used, flat(5, np.int64), 0)
+    slots[:, 2] = np.where(used, np.clip(flat(6, np.int64), 0, bw), 0)
+    slots[:, 3] = flat(7, np.float32).view(np.int32)
+    mat_tab = np.zeros((len(mats), 4), np.int64)
+    mat_tab[:, 0] = [d.data_ptr() for d, _ in mats]
+    mat_tab[:, 1] = [i.data_ptr() for _, i in mats]
+    mat_tab[:, 2] = widths
+    return mat_tab, slots
+
+
+def _upload(parts, dev) -> torch.Tensor:
+    """int64 host arrays concatenated into one table, sent to dev in one
+    copy from pinned memory (no stream sync on the host)."""
+    table = torch.from_numpy(np.concatenate([x.reshape(-1) for x in parts]))
+    if dev.type == "cuda":
+        table = table.pin_memory().to(dev, non_blocking=True)
+    return table
+
+
 def _k3_prepare(widths, mats, narrow, wide, h: int, wn_max: int,
                 chunk: int = _K3_CHUNK) -> dict:
     """Everything one K3 launch needs: its outputs (the (h, wn_max) narrow
     buffers and one (g, W) pair per wide class) and its table, uploaded to
-    the card in one copy from pinned memory (no stream sync on the host);
-    table None when there is no row to write.
+    the card in one copy from pinned memory; table None when there is no
+    row to write.
 
-    The table is one int64 array, as csrc/bm25_full.cu reads it: per bucket
-    matrix a Mat (doc and impact pointers, width), per output row a Row
-    (seg and doc_s pointers, W, lanes written, t, cbits, first slot), per
-    (row, slot) a Slot (matrix, matrix row, live lanes, idf; all 0 but idf
-    for an empty slot), then the items (row << 32 | output chunk),
-    ceil(lanes written / chunk) a row."""
+    The table is one int64 array, as csrc/bm25_full.cu reads it: the Mats
+    and Slots of ``_slot_table``, between them per output row a Row (seg and
+    doc_s pointers, W, lanes written, t, cbits, first slot), then the items
+    (row << 32 | output chunk), ceil(lanes written / chunk) a row."""
     dev = mats[0][0].device
     classes = [*narrow, *wide]
     n_narrow = len(narrow)
@@ -375,42 +440,14 @@ def _k3_prepare(widths, mats, narrow, wide, h: int, wn_max: int,
     rows[:, 4] = t[cls]
     rows[:, 5] = cbits[cls]
     rows[:, 6] = np.cumsum(t[cls]) - t[cls]
-
-    # Slots: a slot is empty when its width is 0 or above its class's p_max.
-    def flat(i, dtype):
-        return np.concatenate([np.asarray(c[i], dtype).reshape(-1)
-                               for c in classes])
-
-    bw = flat(4, np.int64)
-    used = (bw > 0) & (bw <= np.repeat(p_max[cls], t[cls]))
-    warr = np.asarray(widths, np.int64)
-    order = np.argsort(warr)
-    widx = order[np.clip(np.searchsorted(warr[order], bw), 0, len(warr) - 1)]
-    if (used & (warr[widx] != bw)).any():
-        raise ValueError(f"merge_segsum_full: slot width "
-                         f"{int(bw[used & (warr[widx] != bw)][0])} has no "
-                         "bucket matrix")
-    slots = np.zeros((len(bw), 4), np.int32)
-    slots[:, 0] = np.where(used, widx, 0)
-    slots[:, 1] = np.where(used, flat(5, np.int64), 0)
-    slots[:, 2] = np.where(used, np.clip(flat(6, np.int64), 0, bw), 0)
-    slots[:, 3] = flat(7, np.float32).view(np.int32)
-
-    mat_tab = np.zeros((len(mats), 4), np.int64)
-    mat_tab[:, 0] = [d.data_ptr() for d, _ in mats]
-    mat_tab[:, 1] = [i.data_ptr() for _, i in mats]
-    mat_tab[:, 2] = widths
+    mat_tab, slots = _slot_table(widths, mats, classes)
     per_row = -(-rows[:, 3] // chunk)
     items = ((np.repeat(np.arange(n_rows, dtype=np.int64), per_row) << 32)
              | (np.arange(int(per_row.sum()))
                 - np.repeat(np.cumsum(per_row) - per_row, per_row)))
-    table = torch.from_numpy(np.concatenate(
-        [mat_tab.reshape(-1), rows.reshape(-1),
-         slots.view(np.int64).reshape(-1), items]))
-    if dev.type == "cuda":
-        table = table.pin_memory().to(dev, non_blocking=True)
+    table = _upload([mat_tab, rows, slots.view(np.int64), items], dev)
     prep.update(table=table, n_mats=len(mats), n_rows=n_rows,
-                n_slots=len(bw), n_items=len(items), t_max=int(t.max()))
+                n_slots=len(slots), n_items=len(items), t_max=int(t.max()))
     return prep
 
 
@@ -481,11 +518,149 @@ def merge_segsum_full_classes(widths, mats, narrow, wide, h: int,
     return prep["n_val"], prep["n_doc"], prep["wide"]
 
 
+def merge_segsum_topk_classes_ref(widths, mats, classes, out_v, out_i):
+    """Plain version of the batched K2: each class's rows from its slots
+    (``slot_rows``), merged and summed as ``_sorted_sums`` does (packed when
+    cbits > 0, at t == 1 too), their top-k of the positive sums written into
+    the (rows, k) out_v / out_i at the class's sel rows."""
+    k = out_v.shape[1]
+    for p_max, t, cbits, sel, bucketw, rowid, live, idf in classes:
+        doc, con = slot_rows(widths, mats, np.asarray(bucketw), rowid, live,
+                             idf, p_max, t)
+        vals, ids = _topk_positive(*_sorted_sums(doc, con, t, cbits), k)
+        sel = torch.as_tensor(np.asarray(sel, np.int64), device=out_v.device)
+        out_v[sel] = vals
+        out_i[sel] = ids
+    return out_v, out_i
+
+
+def _k2_prepare(widths, mats, classes, out_v, out_i) -> dict:
+    """Everything one K2 launch needs: its table, uploaded to the card in
+    one copy from pinned memory, and its sizes; table None when there is no
+    row.
+
+    The table is one int64 array, as csrc/bm25_topk.cu reads it: the Mats
+    and Slots of ``_slot_table``, between them per query row a Row (its
+    out_v and out_i row pointers, W = t * p_max, t, cbits, first slot),
+    rows with the most given lanes first (they take longest). The sizes
+    bound what a row's block holds: t_max slots, lane_cap given lanes,
+    stage_cap stage lanes (each slot's lanes from the start of their 16-byte
+    line, rounded up to a whole line)."""
+    dev = mats[0][0].device
+    k = out_v.shape[1]
+    g = np.array([len(c[4]) for c in classes], np.int64)
+    n_rows = int(g.sum())
+    if n_rows == 0:
+        return {"table": None}
+    p_max, t, cbits = (np.array([c[i] for c in classes], np.int64)
+                       for i in range(3))
+    cls = np.repeat(np.arange(len(classes)), g)
+    mat_tab, slots = _slot_table(widths, mats, classes)
+    first = np.cumsum(t[cls]) - t[cls]
+    slot_row = np.repeat(np.arange(n_rows), t[cls])
+    lens = slots[:, 2].astype(np.int64)
+    given = np.bincount(slot_row, lens, n_rows).astype(np.int64)
+    head = ((mat_tab[slots[:, 0], 0] // 4
+             + slots[:, 1].astype(np.int64) * mat_tab[slots[:, 0], 2]) % 4)
+    stage = np.bincount(slot_row, np.where(lens > 0, (head + lens + 3) & ~3,
+                                           0), n_rows).astype(np.int64)
+    sel = np.concatenate([np.asarray(c[3], np.int64).reshape(-1)
+                          for c in classes]) * k
+    rows = np.zeros((n_rows, 8), np.int64)
+    rows[:, 0] = out_v.data_ptr() + 4 * sel
+    rows[:, 1] = out_i.data_ptr() + 4 * sel
+    rows[:, 2] = (t * p_max)[cls]
+    rows[:, 3] = t[cls]
+    rows[:, 4] = cbits[cls]
+    rows[:, 5] = first
+    rows = rows[np.argsort(-given, kind="stable")]
+    t_max, lane_cap = int(t.max()), int(given.max())
+    stage_cap = int(stage.max())
+    smem = 8 * stage_cap + 4 * lane_cap + 4 * (5 * t_max + 2)
+    if t_max > _K2_MAX_T or lane_cap > MAX_MERGE_LANES or smem > _K2_SMEM:
+        raise ValueError(f"merge_segsum_topk: a row of {t_max} slots and "
+                         f"{lane_cap} lanes ({smem} bytes of shared memory) "
+                         "is past K2's block")
+    threads = min(_K2_THREADS, max(128, -(-lane_cap // 256) * 32))
+    return {"table": _upload([mat_tab, rows, slots.view(np.int64)], dev),
+            "n_mats": len(mats), "n_rows": n_rows, "n_slots": len(slots),
+            "t_max": t_max, "stage_cap": stage_cap, "lane_cap": lane_cap,
+            "threads": threads, "k": k}
+
+
+def _k2_run(fn, prep: dict) -> int:
+    """Launch K2 through the C entry `fn` (tr_topk_rows or a copy of it) on
+    a prepared launch; returns its cudaError_t."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    return fn(prep["table"].data_ptr(), prep["n_mats"], prep["n_rows"],
+              prep["n_slots"], prep["t_max"], prep["stage_cap"],
+              prep["lane_cap"], prep["threads"], prep["k"],
+              cuda_stream(prep["table"].device))
+
+
+def merge_segsum_topk_classes(widths, mats, classes, out_v, out_i):
+    """K2 for one search: the top-k of every narrow class at once.
+
+    widths / mats: the bucket matrices, one (doc int32, impact float32)
+    pair of (rows, width) tensors per width. classes: each (p_max, t, cbits,
+    sel, bucketw, rowid, live, idf) with (g, t) host arrays per slot (bucket
+    width, 0 = empty; matrix row; live lanes, <= the width; idf) and sel
+    the (g,) rows of out_v / out_i its queries fill. out_v (float32) / out_i
+    (int32): the search's (rows, k) result buffers; each class row gets its
+    k slots, (score desc, doc asc) over sums > 0, then (NEG_INF, -1). Rows
+    of no class are left as they are. Returns (out_v, out_i).
+
+    CPU tensors take ``merge_segsum_topk_classes_ref``; CUDA tensors launch
+    K2 once (csrc/bm25_topk.cu), or raise. Its limits: t * p_max <=
+    MAX_MERGE_LANES, each matrix pair sharing its 16-byte alignment."""
+    dev = mats[0][0].device
+    if dev.type == "cpu":
+        return merge_segsum_topk_classes_ref(widths, mats, classes, out_v,
+                                             out_i)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_segsum_topk: unsupported device {dev}")
+    if any(d.device != dev or i.device != dev for d, i in mats) or any(
+            x.device != dev for x in (out_v, out_i)):
+        raise ValueError("merge_segsum_topk: tensors on different devices")
+    if any(d.dtype != torch.int32 or i.dtype != torch.float32
+           or d.dim() != 2 or d.shape != i.shape or d.shape[1] != w
+           or not (d.is_contiguous() and i.is_contiguous())
+           or (d.data_ptr() - i.data_ptr()) % 16
+           for w, (d, i) in zip(widths, mats)):
+        raise TypeError("merge_segsum_topk: each matrix pair must be "
+                        "contiguous (rows, width) int32 docs and float32 "
+                        "impacts sharing their 16-byte alignment")
+    if (out_v.dtype != torch.float32 or out_i.dtype != torch.int32
+            or out_v.dim() != 2 or out_v.shape != out_i.shape
+            or out_v.shape[1] < 1
+            or not (out_v.is_contiguous() and out_i.is_contiguous())):
+        raise TypeError("merge_segsum_topk: out_v / out_i must be contiguous "
+                        "(rows, k) float32 / int32 tensors")
+    for p_max, t, cbits, sel, bucketw, *_ in classes:
+        if not merge_ok(t * p_max) or t < 1:
+            raise ValueError(f"merge_segsum_topk: a class of t={t} x "
+                             f"p_max={p_max} lanes; K2 takes t * p_max <= "
+                             f"{MAX_MERGE_LANES}")
+        sel = np.asarray(sel)
+        if (not 0 <= cbits <= 30 or np.shape(bucketw) != (len(sel), t)
+                or ((sel < 0) | (sel >= out_v.shape[0])).any()):
+            raise ValueError(f"merge_segsum_topk: bad cbits={cbits}, slot "
+                             f"arrays of shape {np.shape(bucketw)} or sel")
+    prep = _k2_prepare(widths, mats, classes, out_v, out_i)
+    if prep["table"] is not None:
+        check_launch(_k2_run(load_kernels().tr_topk_rows, prep),
+                     "merge_segsum_topk")
+        launch_counts["merge_segsum_topk"] += 1
+    return out_v, out_i
+
+
 def bm25_topk_fused_ref(starts, lens, idf, post_doc, post_impact,
                         n_valid: int, k: int, p_max: int, cbits: int = 0):
     """Plain version of K2': gather_candidates, odd terms flipped, then
-    K2's plain version; rows past MAX_MERGE_LANES take bm25_topk_segsum,
-    as the JAX package routes them."""
+    its bitonic network, window sums and top-k (``_bitonic_topk_ref``);
+    rows past MAX_MERGE_LANES take bm25_topk_segsum, as the JAX package
+    routes them."""
     b, t = starts.shape
     if not merge_ok(t * p_max):
         return bm25_topk_segsum(starts, lens, idf, post_doc, post_impact,
@@ -495,7 +670,7 @@ def bm25_topk_fused_ref(starts, lens, idf, post_doc, post_impact,
     if t > 1:
         doc = flip_odd_blocks(doc, p_max, t)
         con = flip_odd_blocks(con, p_max, t)
-    return merge_segsum_topk_ref(doc, con, k, p_max, t, cbits)
+    return _bitonic_topk_ref(doc, con, k, p_max, t, cbits)
 
 
 def bm25_topk_fused(starts: torch.Tensor, lens: torch.Tensor,
