@@ -66,18 +66,24 @@ non-zero before the result line):
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
      (benchmarks/kb_10m.py --n 1000000 with the device store): K5's TMA +
      int8 wgmma body at Q8_SHAPES and its first body, K6
-     (int8, bf16, fp32) and K8 against their plain versions at small
-     shapes; KnowledgeBase(quant=True) ingests 1M x 1024 chunks of a
+     (int8, bf16, fp32; its row-split body and, at unaligned D, its first
+     body, each case asserting the route it took; IVF_CASES: b=1 on one
+     20k-row cluster, ivf_latency's shape, masked probes, a query with no
+     rows, k past the rows, k=2048) and K8 against their plain versions
+     at small shapes; KnowledgeBase(quant=True) ingests 1M x 1024 chunks of a
      1024-center mixture through add_chunks, build_ivf() packs 4096 int8
      lists, then 4 search_batch requests each of hybrid_ivf at b=32 and
      b=8 and of hybrid at b=32 with every counter reset just before; every
-     K5 launch took the wgmma body; K5, K6, K8 and K4 replayed bit for bit
-     (K8 within 1e-5) on one request's own inputs; K5's two bodies beside K1
-     and torch._int_mm at b=32 and b=512; K6's bf16 form on a 100k-row
-     bf16 IVF; mode 'ivf' recall@10 >= 0.95 against the full probe; the
+     K5 launch took the wgmma body and every K6 launch the row-split body;
+     K5, K6, K8 and K4 replayed bit for bit (K8 within 1e-5) on one
+     request's own inputs, K6 and K8 timed singly and in chains of 10
+     launches, K6 beside its first design (tools/ivf_probe_first.cu);
+     K5's two bodies beside K1 and torch._int_mm at b=32 and b=512; K6's
+     bf16 form on a 100k-row bf16 IVF; mode 'ivf' recall@10 >= 0.95 against the full probe; the
      same partition on the CPU giving the same ids; 1000 chunks after the
      build scanned by K1 in the tail; one profiled request each of
-     hybrid_ivf and hybrid (K5's path).
+     hybrid_ivf (exactly one K6 kernel on the device) and hybrid (K5's
+     path).
   9. the eval-suite slice (tpurag_torch/eval/bench.py, the JAX package's
      tpurag/eval/bench.py): K2' bm25_topk_fused against its plain
      version bit for bit at t in {1, 2, 4, 8} x p_max in {16, 64, 256,
@@ -89,9 +95,12 @@ non-zero before the result line):
      five runnable configs (exact_dense, hybrid, memory_fusion, graph,
      ivf_latency) at full size through run_all(device="cuda"), every
      launch count reset just before each and read just after, with
-     exact_dense recall 1.0 and ivf_latency recall@10 >= 0.95; one hybrid
-     step's K2' call replayed bit for bit; hybrid_step at the driver's
-     example shapes on the card against the CPU; K7 (its Hopper body as
+     exact_dense recall 1.0 and ivf_latency recall@10 >= 0.95, every
+     ivf_latency K6 launch through the row-split body; one hybrid
+     step's K2' call replayed bit for bit; ivf_latency's K6 call replayed
+     within TOL, timed singly and in chains of 10 beside the first design,
+     and profiled (one K6 kernel on the device); hybrid_step at
+     bench.example_inputs' shapes on the card against the CPU; K7 (its Hopper body as
      routed, and its first body) timed
      beside both K1 bodies and torch.topk on the dense inputs of hybrid
      (512 x 100k), graph (256 x 1M), ivf_latency (8 x 2.1M) and phase 7's
@@ -101,7 +110,8 @@ The second-to-last stdout line is the kernel table as JSON, one row per
 kernel: launches over the 1M phases' requests (K1-K4 phase 7, K5, K6, K8
 phase 8) and over phase 9's eval configs (K2'; K7 is on no path, 0), and
 times, plain times, bounds and library times summed over one 1M request's
-launches (K7: phase 7's request; K2': one hybrid step's call); the last is
+launches (K7: phase 7's request; K2': one hybrid step's call; K6 and K8
+timed in chains of 10 launches, the kernel's own time); the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -145,6 +155,8 @@ NOISE_IVF = 0.3
 IVF_BLOCK = 1 << 17
 B_IVF = 32
 K_IVF = 10
+# Phase 8's bf16 check: an IVF of the KB's first rows.
+N_IVF_BF16 = 100_000
 # Published H100 SXM peaks (NVIDIA data sheet) for the kernels' bounds.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
@@ -1005,14 +1017,13 @@ def ivf_layout(rng, n_lists: int, d: int, dtype, sizes=(0, 1, 7, 40, 300)):
     pad = (counts + 7) // 8 * 8
     starts = np.concatenate([[0], np.cumsum(pad)[:-1]]).astype(np.int32)
     total = int(pad.sum()) + IVF_SCAN_EXTENT
-    rows = torch.from_numpy(unit_rows(rng, total, d)).cuda()
     scales = torch.from_numpy(rng.uniform(0.002, 0.01, n_lists).astype(
         np.float32)).cuda()
     if dtype == torch.int8:
         emb = torch.from_numpy(rng.integers(-127, 128, (total, d)).astype(
             np.int8)).cuda()
     else:
-        emb = rows.to(dtype)
+        emb = torch.from_numpy(unit_rows(rng, total, d)).cuda().to(dtype)
     return (emb, torch.from_numpy(starts).cuda(),
             torch.from_numpy(counts).cuda(), scales)
 
@@ -1027,18 +1038,57 @@ def probe_tables(rng, layout, b: int, n_probe: int):
     return starts[probe], counts[probe], scales[probe]
 
 
+# K6's edge cases on the card beyond random probes of small clusters:
+# name -> (b, n_lists, n_probe, d, k, dtype, check_ivf options).
+IVF_CASES = {
+    # One query's rows spread over every block of the grid.
+    "b1_one_cluster": (1, 2, 1, DIM, 10, torch.int8,
+                       {"sizes": (20_480, 24_000)}),
+    # eval ivf_latency's shape at a small N: 8 queries x 2 probes of
+    # ~1000-row clusters, bf16 D=1024.
+    "ivf_latency": (8, 48, 2, DIM, 10, torch.bfloat16,
+                    {"sizes": (960, 1000, 1040, 1100)}),
+    # ivf_scan's nprobe_dyn mask: probes of count 0 among live ones.
+    "masked_probes": (16, 256, 24, DIM, 20, torch.int8,
+                      {"sizes": (100, 245, 400), "mask": 0.4}),
+    # A query whose every probe is empty comes out all (NEG_INF, 2^30).
+    "empty_query": (6, 64, 4, 256, 10, torch.int8, {"empty_query": 2}),
+    "k_past_rows": (4, 40, 3, 256, 600, torch.int8,
+                    {"sizes": (0, 1, 7, 40)}),
+    # MAX_K: the warp lists in device memory.
+    "k_max": (4, 128, 16, 512, 2048, torch.int8, {"sizes": (100, 300)}),
+}
+
+
 def check_ivf(b: int, n_lists: int, n_probe: int, d: int, k: int, dtype,
-              seed: int = 0):
+              seed: int = 0, sizes=(0, 1, 7, 40, 300), mask: float = 0.0,
+              empty_query=None):
     """K6 against its plain version on the card: int8 bit-identical (the
     scores before the query scale, and the ids); bf16 / fp32 within TOL,
-    ids equal except at near ties. Returns max_abs_err."""
-    from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
-                                               ivf_probe_topk_ref)
+    ids equal except at near ties. mask: the share of probes given count
+    0, as ivf_scan's nprobe_dyn makes them; empty_query: a query whose
+    every probe has count 0. The call must take the row-split body
+    exactly when a row is a multiple of 16 bytes (the layouts are
+    aligned), and the body's chunk rows must be those of the Python split
+    (ivf_chunk_rows). Returns max_abs_err."""
+    from tpurag_torch.kernels.ivf_scan import (_STORE_CODE, ivf_chunk_rows,
+                                               ivf_probe_topk,
+                                               ivf_probe_topk_ref,
+                                               ivf_rows_config)
+    from tpurag_torch.kernels.runtime import launch_counts
 
     rng = np.random.default_rng(seed)
-    layout = ivf_layout(rng, n_lists, d, dtype)
+    layout = ivf_layout(rng, n_lists, d, dtype, sizes)
     emb = layout[0]
     starts, counts, scales = probe_tables(rng, layout, b, n_probe)
+    if mask:
+        drop = torch.from_numpy(rng.random((b, n_probe)) < mask).cuda()
+        counts = torch.where(drop, 0, counts)
+    if empty_query is not None:
+        counts[empty_query] = 0
+    before = (launch_counts["ivf_probe_topk"],
+              launch_counts["ivf_probe_topk_sm90"])
+    rows_body = d * emb.element_size() % 16 == 0
     if dtype == torch.int8:
         q = torch.from_numpy(rng.integers(-127, 128, (b, d)).astype(
             np.int8)).cuda()
@@ -1048,13 +1098,26 @@ def check_ivf(b: int, n_lists: int, n_probe: int, d: int, k: int, dtype,
         torch.cuda.synchronize()
         assert torch.equal(i_k, i_r), f"K6 int8 ids differ at b={b} k={k}"
         assert torch.equal(v_k, v_r), f"K6 int8 values differ at b={b} k={k}"
-        return 0.0
-    q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
-    v_k, i_k = ivf_probe_topk(q, emb, starts, counts, k)
-    v_r, i_r = ivf_probe_topk_ref(q, emb, starts, counts, k + 1)
-    torch.cuda.synchronize()
-    assert v_k.shape == (b, k) and i_k.dtype == torch.int32
-    return topk_agree(v_k, i_k, v_r, i_r)
+        err = 0.0
+    else:
+        q = torch.from_numpy(unit_rows(rng, b, d)).cuda()
+        v_k, i_k = ivf_probe_topk(q, emb, starts, counts, k)
+        v_r, i_r = ivf_probe_topk_ref(q, emb, starts, counts, k + 1)
+        torch.cuda.synchronize()
+        assert v_k.shape == (b, k) and i_k.dtype == torch.int32
+        err = topk_agree(v_k, i_k, v_r, i_r)
+    if empty_query is not None:
+        assert (i_k[empty_query] == 2**30).all()
+        assert (v_k[empty_query] < -1e38).all()
+    assert (launch_counts["ivf_probe_topk"],
+            launch_counts["ivf_probe_topk_sm90"]) == (
+        before[0] + 1, before[1] + rows_body), f"K6's route at b={b} d={d}"
+    if rows_body:
+        chunk = ivf_rows_config(_STORE_CODE[dtype], d, k,
+                                emb.device.index or 0)[1]
+        assert chunk == ivf_chunk_rows(d * emb.element_size()), (
+            f"K6's chunk rows {chunk} at d={d} {dtype}")
+    return err
 
 
 def zipf_df(vocab: int, df_max: int) -> np.ndarray:
@@ -1195,12 +1258,14 @@ def drive_slice(device: str, kernels=()) -> dict:
 def count_names(kernels) -> list:
     """The launch counts a drive resets and reads: each kernel wrapper's,
     and beside dense_topk's (every K1 launch), dense_scan_q8's (every K5
-    launch) and dense_topk_co's (every K7 launch) dense_topk_sm90's,
-    dense_scan_q8_sm90's and dense_topk_co_sm90's (those that took the
-    TMA + wgmma bodies)."""
+    launch), dense_topk_co's (every K7 launch) and ivf_probe_topk's (every
+    K6 launch) dense_topk_sm90's, dense_scan_q8_sm90's, dense_topk_co_sm90's
+    and ivf_probe_topk_sm90's (those that took the TMA + wgmma bodies, or
+    K6's row-split body)."""
     names = [fn.__name__ for fn in kernels]
     return names + [f"{n}_sm90" for n in ("dense_topk", "dense_scan_q8",
-                                          "dense_topk_co") if n in names]
+                                          "dense_topk_co", "ivf_probe_topk")
+                    if n in names]
 
 
 def recording(module, name: str, calls: list):
@@ -1686,25 +1751,16 @@ def ids_agree(v_a, i_a, v_b, i_b, tol: float) -> float:
                       tol)
 
 
-def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
-    """The int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
-    (benchmarks/kb_10m.py --n 1000000, device store): KnowledgeBase(quant=
-    True, device=device) ingests 1M chunks x 1024 of the 1024-center
-    mixture in blocks of 131072 through add_chunks, build_ivf() packs the
-    int8 partition (4096 lists), then hybrid_ivf requests at b=32 and b=8
-    and hybrid requests at b=32 (every kernel's launch count reset just
-    before, read just after). One warm-up request of each mode has its
-    kernel calls recorded for the replays. Then: recall@10 of mode 'ivf'
-    against the full probe, the same IVF on the CPU (plain versions),
-    1000 chunks added after the build (the tail goes through K1) and one
-    profiled request each of hybrid_ivf and hybrid."""
+def ivf_kb(device: str):
+    """Phase 8's KB: KnowledgeBase(quant=True, device=device) ingests 1M
+    chunks x 1024 of the 1024-center mixture in blocks of 131072 through
+    add_chunks, then build_ivf() packs the int8 partition (4096 lists).
+    Returns (kb, its IVF index, centers, ingest seconds, build
+    seconds)."""
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.config import EngineConfig
     from tpurag_torch.core.types import Chunk
-    from tpurag_torch.index import inverted as inverted_mod
-    from tpurag_torch.kernels import ivf_scan as ivf_mod
-    from tpurag_torch.kernels import quant as quant_mod
-    from tpurag_torch.kernels.runtime import launch_counts, round_up
+    from tpurag_torch.kernels.runtime import round_up
 
     def sync():
         if device == "cuda":
@@ -1727,7 +1783,32 @@ def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
     t0 = time.perf_counter()
     ivf = kb.build_ivf()
     sync()
-    build_s = time.perf_counter() - t0
+    return kb, ivf, centers, ingest_s, time.perf_counter() - t0
+
+
+def drive_ivf(device: str, kernels=(), card: str = "") -> dict:
+    """The int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
+    (benchmarks/kb_10m.py --n 1000000, device store): KnowledgeBase(quant=
+    True, device=device) ingests 1M chunks x 1024 of the 1024-center
+    mixture in blocks of 131072 through add_chunks, build_ivf() packs the
+    int8 partition (4096 lists), then hybrid_ivf requests at b=32 and b=8
+    and hybrid requests at b=32 (every kernel's launch count reset just
+    before, read just after). One warm-up request of each mode has its
+    kernel calls recorded for the replays. Then: recall@10 of mode 'ivf'
+    against the full probe, the same IVF on the CPU (plain versions),
+    1000 chunks added after the build (the tail goes through K1) and one
+    profiled request each of hybrid_ivf and hybrid."""
+    from tpurag_torch.core.types import Chunk
+    from tpurag_torch.index import inverted as inverted_mod
+    from tpurag_torch.kernels import ivf_scan as ivf_mod
+    from tpurag_torch.kernels import quant as quant_mod
+    from tpurag_torch.kernels.runtime import launch_counts
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    kb, ivf, centers, ingest_s, build_s = ivf_kb(device)
     assert len(kb) == N_IVF and ivf.emb_ivf_q8 is not None
     assert ivf.emb_ivf is not None and ivf.align == 8, ivf.align
     nprobe = int(np.ceil(ivf.config.n_probe * ivf.nprobe_scale))
@@ -1889,20 +1970,33 @@ def replay_q8(calls) -> dict:
             "bound": bound_ms(nbytes, ops, INT8_OPS_S)}
 
 
-def replay_ivf(calls) -> dict:
+def replay_ivf(calls, first=None) -> dict:
     """K6 on the main path's own inputs: int8 bit-identical to its plain
     version (scores before the query scale, and ids), bf16 / fp32 within
     TOL with ids equal but at near ties; the largest score difference and
-    the summed times. The bound counts the rows these probes hold, at the
-    storage type's peak."""
+    the summed times, one launch at a time and in chains of 10 (the
+    kernel's own time where the kernel outlasts the wrapper's host time,
+    host_ms: the host's time to enqueue one call), of the plain version
+    and (first: tools/k6_anatomy.py's build of the first design) of the
+    first design. Every launch must take the row-split body. The bound
+    reads each distinct probed row once (queries that probe one cluster
+    share its rows) and counts one product per probed row at the storage
+    type's peak; `probed_bound` reads every probed row, and `distinct` is
+    the share of probed rows that are distinct."""
     from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
                                                ivf_probe_topk_ref)
+    from tpurag_torch.kernels.runtime import launch_counts
 
-    err = ms = plain_ms = nbytes = ops = 0.0
+    tool = load_tool("k6_anatomy") if first is not None else None
+    err = ms = chain_ms = host_ms = plain_ms = first_ms = first_chain_ms = 0.0
+    nbytes = probed_bytes = ops = rows = distinct = 0
     shapes = []
     for args, kw in calls:
         q, emb, starts, counts, k = args
+        before = launch_counts["ivf_probe_topk_sm90"]
         v_k, i_k = ivf_probe_topk(*args, **kw)
+        assert launch_counts["ivf_probe_topk_sm90"] == before + 1, (
+            "K6 replay missed the row-split body")
         if emb.dtype == torch.int8:
             v_r, i_r = ivf_probe_topk_ref(*args, **kw)
             torch.cuda.synchronize()
@@ -1913,26 +2007,54 @@ def replay_ivf(calls) -> dict:
             assert (i_k[:, 0] < 2**30).any(), "K6 replay found no rows"
             err = max(err, topk_agree(v_k, i_k, v_r, i_r))
         ms += cuda_ms(lambda: ivf_probe_topk(*args, **kw))
+        chain_ms += cuda_ms(lambda: ivf_probe_topk(*args, **kw), chain=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ivf_probe_topk(*args, **kw)
+        host_ms += (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
         plain_ms += cuda_ms(lambda: ivf_probe_topk_ref(*args, **kw))
+        if tool is not None:
+            qs = q if emb.dtype == torch.int8 else q.to(emb.dtype)
+            run = tool.first_probe(first, qs.contiguous(), emb, starts,
+                                   counts, k, kw.get("scales_sel"))
+            _, f_i = run()
+            torch.cuda.synchronize()
+            assert torch.equal(f_i, i_k) or emb.dtype != torch.int8, (
+                "K6's first design differs")
+            first_ms += cuda_ms(run)
+            first_chain_ms += cuda_ms(run, chain=10)
         b, d = q.shape
-        rows = int(counts.sum().item())
-        nbytes += (rows * d * emb.element_size() + b * d * q.element_size()
-                   + starts.numel() * 12 + b * k * 8)
-        ops += 2 * rows * d
+        n = int(counts.sum().item())
+        live = counts > 0
+        size = dict(zip(starts[live].tolist(), counts[live].tolist()))
+        n_distinct = sum(size.values())
+        distinct += n_distinct
+        rows += n
+        rest = b * d * q.element_size() + starts.numel() * 12 + b * k * 8
+        nbytes += n_distinct * d * emb.element_size() + rest
+        probed_bytes += n * d * emb.element_size() + rest
+        ops += 2 * n * d
         shapes.append(f"{emb.dtype} b={b} nprobe={starts.shape[1]} "
-                      f"rows={rows} k={k}")
+                      f"rows={n} k={k}")
     peak = {torch.int8: INT8_OPS_S, torch.bfloat16: BF16_FLOPS_S}.get(
         emb.dtype, FP32_OPS_S)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "shapes": shapes,
-            "bound": bound_ms(nbytes, ops, peak)}
+    return {"err": err, "ms": ms, "chain_ms": chain_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "first_ms": first_ms,
+            "first_chain_ms": first_chain_ms,
+            "shapes": shapes, "distinct": distinct / max(rows, 1),
+            "bound": bound_ms(nbytes, ops, peak),
+            "probed_bound": bound_ms(probed_bytes, 2 * rows * d, peak)}
 
 
 def replay_gather(calls) -> dict:
     """K8 on the main path's own inputs: within 1e-5 of its plain version
-    on live candidates, and the summed times."""
+    on live candidates, and the summed times, one launch at a time (the
+    ctypes enqueue included) and in chains of 10 (the kernel's own)."""
     from tpurag_torch.kernels.quant import gather_scores, gather_scores_ref
 
-    err = ms = plain_ms = nbytes = ops = 0.0
+    err = ms = chain_ms = plain_ms = nbytes = ops = 0.0
     shapes = []
     for args, _ in calls:
         q, emb, ids = args
@@ -1944,53 +2066,57 @@ def replay_gather(calls) -> dict:
             err = max(err, (got - want)[live].abs().max().item())
         assert err <= 1e-5, f"K8 replay differs by {err}"
         ms += cuda_ms(lambda: gather_scores(*args))
+        chain_ms += cuda_ms(lambda: gather_scores(*args), chain=10)
         plain_ms += cuda_ms(lambda: gather_scores_ref(*args))
         b, d = q.shape
         n_live = int(live.sum().item())
         nbytes += n_live * d * emb.element_size() + b * d * 4 + ids.numel() * 8
         ops += 2 * n_live * d
         shapes.append(f"{b}x{ids.shape[1]}")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "shapes": shapes,
-            "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
+    return {"err": err, "ms": ms, "chain_ms": chain_ms, "plain_ms": plain_ms,
+            "shapes": shapes, "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
 
 
-def check_ivf_bf16(kb, qv, card: str) -> dict:
-    """K6's bf16 form at phase 8's probe shapes: a bf16 IVF of the first
-    100k rows of the KB (n_lists scaled so clusters keep the 1M
-    partition's mean size), probed by the phase's queries at the default
-    nprobe; held to its plain version within TOL (ids equal but at near
-    ties) and timed."""
+def ivf_bf16_call(kb, qv):
+    """check_ivf_bf16's K6 call: a bf16 IVF of the first 100k rows of the
+    KB (n_lists scaled so clusters keep the 1M partition's mean size)
+    probed by the queries qv at the default nprobe. Returns ((args, kw),
+    the IVF, nprobe, build seconds)."""
     from tpurag_torch.index.ivf import IVFIndex
-    from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk,
-                                               ivf_probe_topk_ref,
-                                               probe_clusters)
+    from tpurag_torch.kernels.ivf_scan import probe_clusters
 
-    n = 100_000
     cfg = dataclasses.replace(kb.config.ivf,
-                              n_lists=N_LISTS_IVF * n // N_IVF)
+                              n_lists=N_LISTS_IVF * N_IVF_BF16 // N_IVF)
     t0 = time.perf_counter()
     sub = IVFIndex(cfg, device="cuda").build_streaming(
-        kb.dense.get_rows, n, dtype=torch.bfloat16)
+        kb.dense.get_rows, N_IVF_BF16, dtype=torch.bfloat16)
     build_s = time.perf_counter() - t0
     nprobe = int(np.ceil(cfg.n_probe * sub.nprobe_scale))
     q = torch.from_numpy(qv).cuda()
     probe = probe_clusters(q, sub.centroids, nprobe)
     starts = sub.cluster_starts[probe].int()
     counts = sub.cluster_counts[probe].int()
-    args = (q, sub.emb_ivf, starts, counts)
-    v_k, i_k = ivf_probe_topk(*args, K_IVF)
-    v_r, i_r = ivf_probe_topk_ref(*args, K_IVF + 1)
-    torch.cuda.synchronize()
-    err = topk_agree(v_k, i_k, v_r, i_r)
-    ms = cuda_ms(lambda: ivf_probe_topk(*args, K_IVF))
-    plain_ms = cuda_ms(lambda: ivf_probe_topk_ref(*args, K_IVF))
-    rows = int(counts.sum().item())
-    log(f"[K6] bf16 form on a {n}-row bf16 IVF ({sub.n_lists} lists, built "
-        f"in {build_s:.1f}s), b={len(qv)} nprobe={nprobe} rows={rows}: "
-        f"max|dscore|={err:.3e} against the plain version; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{rows * DIM * 2 / HBM_BYTES_S * 1e3:.4f} ms (bytes) ({card})")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    return ((q, sub.emb_ivf, starts, counts, K_IVF), {}), sub, nprobe, build_s
+
+
+def check_ivf_bf16(kb, qv, card: str, first=None) -> dict:
+    """K6's bf16 form at phase 8's probe shapes: a bf16 IVF of the first
+    100k rows of the KB (n_lists scaled so clusters keep the 1M
+    partition's mean size), probed by the phase's queries at the default
+    nprobe; held to its plain version within TOL (ids equal but at near
+    ties) and timed (replay_ivf: singly, in chains of 10, beside the
+    first design)."""
+    call, sub, nprobe, build_s = ivf_bf16_call(kb, qv)
+    r = replay_ivf([call], first)
+    log(f"[K6] bf16 form on a {N_IVF_BF16}-row bf16 IVF ({sub.n_lists} "
+        f"lists, built in {build_s:.1f}s), {r['shapes'][0]}, nprobe={nprobe}: "
+        f"max|dscore|={r['err']:.3e} against the plain version; kernel "
+        f"{r['ms']:.4f} ms ({r['chain_ms']:.4f} in chains of 10), first "
+        f"design {r['first_ms']:.4f} ({r['first_chain_ms']:.4f}), plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+        f"({r['bound'][1]}; distinct rows {r['distinct']:.4f} of those "
+        f"probed, every probed row: {r['probed_bound'][0]:.4f} ms) ({card})")
+    return r
 
 
 def q8_standalone(kb, card: str) -> dict:
@@ -2029,8 +2155,8 @@ PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "merge_segsum_kernel": "K2'",
                 "dense_scan_q8_sm90_kernel": "K5",
                 "full_rows_kernel": "K3", "combine_items_kernel": "K4",
-                "ivf_scan_kernel": "K6",
-                "ivf_merge_kernel": "K6", "dense_co_scan_kernel": "K7",
+                "ivf_scan_kernel": "K6", "ivf_rows_kernel": "K6",
+                "dense_co_scan_kernel": "K7",
                 "dense_co_resident_q_kernel": "K7",
                 "dense_co_resident_c_kernel": "K7",
                 "gather_scores_kernel": "K8"}
@@ -2048,8 +2174,8 @@ def device_profile(fn) -> dict:
     synchronize), device-busy ms (the sum of the card's kernel and copy
     times), the number of those device operations, the busiest device
     functions (template arguments kept), each port kernel's device ms
-    and the ms of PyTorch's gathers (vectorized_gather_kernel), its
-    elementwise kernels and the copies."""
+    and launches (port_ops), and the ms of PyTorch's gathers
+    (vectorized_gather_kernel), its elementwise kernels and the copies."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2061,6 +2187,7 @@ def device_profile(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = {}
     ops = 0
+    port_ops: dict[str, int] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ops += 1
@@ -2071,6 +2198,8 @@ def device_profile(fn) -> dict:
             name = m.group(1).lstrip("_") if m else e.name[:48]
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
+            if (kern := port_kernel(name)) is not None:
+                port_ops[kern] = port_ops.get(kern, 0) + 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     port: dict[str, float] = {}
@@ -2084,7 +2213,8 @@ def device_profile(fn) -> dict:
     copies = sum(ms for name, ms in by_name.items()
                  if name.startswith("Memcpy"))
     return {"wall_ms": wall_ms, "busy_ms": busy, "ops": ops, "top": top,
-            "port": dict(sorted(port.items())), "gather_ms": gather,
+            "port": dict(sorted(port.items())), "port_ops": port_ops,
+            "gather_ms": gather,
             "elementwise_ms": elementwise, "copy_ms": copies}
 
 
@@ -2155,7 +2285,7 @@ def main() -> int:
                                                  merge_segsum_full,
                                                  merge_segsum_topk)
     from tpurag_torch.kernels.dense import dense_topk, dense_topk_co
-    from tpurag_torch.kernels.ivf_scan import ivf_probe_topk
+    from tpurag_torch.kernels.ivf_scan import ivf_probe_topk, ivf_scan
     from tpurag_torch.kernels.quant import dense_scan_q8, gather_scores
     from tpurag_torch.kernels.runtime import launch_counts, load_kernels
 
@@ -2173,29 +2303,31 @@ def main() -> int:
         f"(nvcc {runtime.build_info['seconds']:.1f}s) "
         f"{runtime.build_info['path']}")
     func = ""
-    wgmma_bodies = ("dense_scan_sm90_kernel", "dense_scan_q8_sm90_kernel",
+    no_spill_bodies = ("dense_scan_sm90_kernel", "dense_scan_q8_sm90_kernel",
                     "dense_co_resident_q_kernel",
-                    "dense_co_resident_c_kernel")
-    spill_funcs = {body: set() for body in wgmma_bodies}
+                    "dense_co_resident_c_kernel", "ivf_rows_kernel")
+    spill_funcs = {body: set() for body in no_spill_bodies}
     for line in runtime.build_info["log"].splitlines():
         if m := re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?(\w+)", line):
             func = m.group(1)
         if "registers" in line or "spill" in line:
             log(f"[build] {func}: {line.strip()}")
-        for body in wgmma_bodies:
+        for body in no_spill_bodies:
             if "spill" in line and body in func:
                 spill_funcs[body].add(func)
                 assert re.search(r"\b0 bytes spill stores, 0 bytes spill "
                                  r"loads", line), f"{body} spills: {line}"
     # No ptxas report for a kernel means the log or its format changed,
-    # and the check above saw nothing (K5's body has two tiles).
+    # and the check above saw nothing (K5's body has two tiles; K6's
+    # row-split body one per storage type).
     spill_counts = {body: len(f) for body, f in spill_funcs.items()}
     assert spill_counts == {"dense_scan_sm90_kernel": 1,
                             "dense_scan_q8_sm90_kernel": 2,
                             "dense_co_resident_q_kernel": 1,
-                            "dense_co_resident_c_kernel": 1}, (
-        f"wgmma bodies with a ptxas spill report: {spill_counts}")
+                            "dense_co_resident_c_kernel": 1,
+                            "ivf_rows_kernel": 3}, (
+        f"bodies with a ptxas spill report: {spill_counts}")
 
     # -- 3. K1 against its plain version --------------------------------------
     launch_counts["dense_topk_sm90"] = 0
@@ -2439,12 +2571,16 @@ def main() -> int:
                  (4, 30, 6, 36, 8, torch.bfloat16),
                  (6, 50, 10, 64, 12, torch.float32)):
         err6 = max(err6, check_ivf(*args, seed=args[0] + args[4]))
+    for i, (*args, kw) in enumerate(IVF_CASES.values()):
+        err6 = max(err6, check_ivf(*args, seed=40 + i, **kw))
     log(f"[K5] {len(Q8_SHAPES)} shapes (b 1-512, D in {{40, 48, "
         f"1024, 4096}}, k 1-600, n_valid < N, k > n_valid; D=40 on the first "
         f"body, the rest on the wgmma body) and the first body at 3 aligned "
         f"shapes: bit-identical to the plain version; [K6] int8 "
         f"bit-identical, bf16 / fp32 "
-        f"max|dscore|={err6:.3e} at 6 shapes (empty and small clusters); "
+        f"max|dscore|={err6:.3e} at 6 shapes (empty and small clusters; D "
+        f"in {{40, 36}} on the first body, the rest on the row-split body) "
+        f"and {len(IVF_CASES)} edge cases ({', '.join(IVF_CASES)}); "
         f"[K8] max|dscore|={err8:.3e} at 3 shapes ({card})")
     ivf_kernels = kernels + (dense_scan_q8, ivf_probe_topk, gather_scores)
     iv = drive_ivf("cuda", ivf_kernels, card)
@@ -2456,8 +2592,12 @@ def main() -> int:
         assert ivf_launches[name] > 0, f"{name} was not launched in phase 8"
     assert ivf_launches["dense_scan_q8_sm90"] == ivf_launches[
         "dense_scan_q8"], "a 1M request's K5 launch missed the wgmma body"
+    assert ivf_launches["ivf_probe_topk_sm90"] == ivf_launches[
+        "ivf_probe_topk"], "a 1M request's K6 launch missed the row-split body"
     k5 = replay_q8(iv["calls"]["dense_scan_q8"])
-    k6 = replay_ivf(iv["calls"]["ivf_probe_topk"])
+    k6_first = load_tool("k6_anatomy").build_first(runtime.BUILD_DIR
+                                                   / "k6_first")
+    k6 = replay_ivf(iv["calls"]["ivf_probe_topk"], k6_first)
     k8 = replay_gather(iv["calls"]["gather_scores"])
     k4i = replay_combine(iv["calls"]["combine_topk_classes"])
     log(f"[K4] phase 8's launch ({', '.join(k4i['shapes'])}) bit-identical "
@@ -2470,14 +2610,25 @@ def main() -> int:
     for name, r, lib in (("K5", k5, f"first body {k5['first_ms']:.3f} ms, "
                                     "torch._int_mm + scale + topk "
                                     f"{k5['lib_ms']:.3f} ms, "),
-                         ("K6", k6, ""), ("K8", k8, "")):
+                         ("K6", k6, f"{k6['chain_ms']:.4f} ms in chains of "
+                                    f"10 (host {k6['host_ms']:.4f} ms a "
+                                    "call), first design "
+                                    f"{k6['first_ms']:.4f} "
+                                    f"({k6['first_chain_ms']:.4f}) ms, "
+                                    f"distinct rows {k6['distinct']:.4f} of "
+                                    "those probed (bound over every probed "
+                                    f"row {k6['probed_bound'][0]:.4f} ms), "),
+                         ("K8", k8, f"{k8['chain_ms']:.4f} ms in chains of "
+                                    "10, ")):
         log(f"[{name}] one request's {len(r['shapes'])} launch(es) on the 1M "
             f"path ({', '.join(r['shapes'])}) held to the plain version: "
             f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, {lib}"
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) ({card})")
     q8_standalone(iv["kb"], card)
-    bf = check_ivf_bf16(iv["kb"], iv["qv"], card)
+    bf = check_ivf_bf16(iv["kb"], iv["qv"], card, k6_first)
     err6 = max(err6, bf["err"])
+    k6_ops = iv["profiles"]["hybrid_ivf"]["port_ops"].get("K6", 0)
+    assert k6_ops == 1, f"a hybrid_ivf request ran {k6_ops} K6 kernels"
     for mode, prof in iv["profiles"].items():
         if prof["busy_ms"] > 0:
             log(f"[perf] ivf: one profiled {mode} request (b={B_IVF}, with "
@@ -2556,7 +2707,7 @@ def main() -> int:
 
     eval_kernels = ivf_kernels + (bm25_topk_fused, dense_topk_co)
     eval_calls = {"fused": [], "hybrid": [], "graph": [], "ivf_latency": [],
-                  "ivf_probe": []}
+                  "ivf_probe": [], "ivf_scan": []}
     results, eval_launches = {}, {}
     for name in ("exact_dense", "hybrid", "memory_fusion", "graph",
                  "ivf_latency"):
@@ -2572,6 +2723,8 @@ def main() -> int:
             if name == "ivf_latency":
                 stack.enter_context(recording(ivf_scan_mod, "ivf_probe_topk",
                                               eval_calls["ivf_probe"]))
+                stack.enter_context(recording(bench_mod, "ivf_scan",
+                                              eval_calls["ivf_scan"]))
             t0 = time.perf_counter()
             results[name] = bench_mod.run_all([name], device="cuda")[0]
         eval_launches[name] = {kern: launch_counts[kern]
@@ -2592,6 +2745,9 @@ def main() -> int:
                        ("ivf_latency", "ivf_probe_topk")):
         assert eval_launches[name].get(kern, 0) > 0, (
             f"{kern} was not launched in the eval config {name}")
+    assert eval_launches["ivf_latency"].get("ivf_probe_topk_sm90") == (
+        eval_launches["ivf_latency"]["ivf_probe_topk"]), (
+        "an ivf_latency K6 launch missed the row-split body")
     co_launches = sum(n.get("dense_topk_co", 0)
                       for n in eval_launches.values())
 
@@ -2605,12 +2761,31 @@ def main() -> int:
 
     # 9c'. ivf_latency's K6 scan (bf16, the tuned nprobe) replayed against
     # its plain version; its K1 calls follow in 9e.
-    k6l = replay_ivf(eval_calls["ivf_probe"][-1:])
+    k6l = replay_ivf(eval_calls["ivf_probe"][-1:], k6_first)
     err6 = max(err6, k6l["err"])
+    # One timed IVF step (ivf_scan: probe choice, K6, the id map) under the
+    # profiler: exactly one K6 kernel on the device. The first profiled
+    # call after the eval configs records no device operation at all (seen
+    # on an H100), so a discarded profiled call goes first.
+    (args, kw), = eval_calls["ivf_scan"][-1:]
+    device_profile(lambda: ivf_scan(*args, **kw))
+    k6l_prof = device_profile(lambda: ivf_scan(*args, **kw))
+    k6_ops = k6l_prof["port_ops"].get("K6", 0)
+    log(f"[K6] one ivf_latency IVF step (ivf_scan) profiled: device busy "
+        f"{k6l_prof['busy_ms']:.4f} ms in {k6l_prof['ops']} device "
+        f"operations, {k6_ops} K6 kernel(s) "
+        f"({k6l_prof['port'].get('K6', 0.0):.4f} ms); busiest: "
+        + "; ".join(f"{n} {ms:.4f} ms" for n, ms in k6l_prof["top"][:5])
+        + f" ({card})")
+    assert k6_ops == 1, f"an ivf_latency step ran {k6_ops} K6 kernels"
     log(f"[K6] ivf_latency's timed scan ({', '.join(k6l['shapes'])}) against "
         f"the plain version: max|dscore|={k6l['err']:.3e}; kernel "
-        f"{k6l['ms']:.3f} ms, plain {k6l['plain_ms']:.3f} ms, bound "
-        f"{k6l['bound'][0]:.4f} ms ({k6l['bound'][1]}) ({card})")
+        f"{k6l['ms']:.4f} ms ({k6l['chain_ms']:.4f} in chains of 10; the "
+        f"wrapper's host time {k6l['host_ms']:.4f} ms a call), first design "
+        f"{k6l['first_ms']:.4f} ({k6l['first_chain_ms']:.4f}) ms, plain "
+        f"{k6l['plain_ms']:.3f} ms, bound {k6l['bound'][0]:.4f} ms "
+        f"({k6l['bound'][1]}; distinct rows {k6l['distinct']:.4f} of those "
+        f"probed) ({card})")
 
     # 9d. hybrid_step at the JAX package driver's example shapes, on the
     # card and on the CPU.
@@ -2705,14 +2880,14 @@ def main() -> int:
          "source": "tpurag_torch/csrc/ivf_probe.cu",
          "replaces": "tpurag/kernels/ivf_scan.py:236",
          "launches": ivf_launches["ivf_probe_topk"], "max_abs_err": err6,
-         "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+         "ms": k6["chain_ms"], "plain_ms": k6["plain_ms"],
          "bound_ms": k6["bound"][0], "bound_by": k6["bound"][1],
          "library_ms": None},
         {"name": "gather_scores", "route": "cuda",
          "source": "tpurag_torch/csrc/gather_scores.cu",
          "replaces": "tpurag/kernels/quant.py:213",
          "launches": ivf_launches["gather_scores"], "max_abs_err": err8,
-         "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+         "ms": k8["chain_ms"], "plain_ms": k8["plain_ms"],
          "bound_ms": k8["bound"][0], "bound_by": k8["bound"][1],
          "library_ms": None},
         {"name": "bm25_topk_fused", "route": "cuda",

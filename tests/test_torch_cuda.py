@@ -226,18 +226,23 @@ def test_gather_scores_kernel_matches_plain(cuda, b, m, n, d, dtype):
     assert launch_counts["gather_scores"] == before + 1
 
 
-@pytest.mark.parametrize("b,n_lists,n_probe,d,k,dtype", [
-    (32, 256, 64, 1024, 20, torch.int8),
-    (8, 64, 64, 256, 10, torch.int8),      # every cluster probed
-    (5, 40, 3, 40, 50, torch.int8),        # unaligned D, k > rows
-    (32, 256, 64, 1024, 10, torch.bfloat16),
-    (4, 30, 6, 36, 8, torch.bfloat16),     # unaligned D
-    (6, 50, 10, 64, 12, torch.float32),
+@pytest.mark.parametrize("b,n_lists,n_probe,d,k,dtype,kw", [
+    (32, 256, 64, 1024, 20, torch.int8, {}),
+    (8, 64, 64, 256, 10, torch.int8, {}),      # every cluster probed
+    (5, 40, 3, 40, 50, torch.int8, {}),        # unaligned D, k > rows
+    (32, 256, 64, 1024, 10, torch.bfloat16, {}),
+    (4, 30, 6, 36, 8, torch.bfloat16, {}),     # unaligned D
+    (6, 50, 10, 64, 12, torch.float32, {}),
+    *chip_smoke.IVF_CASES.values(),
 ])
 def test_ivf_probe_kernel_matches_plain(cuda, b, n_lists, n_probe, d, k,
-                                        dtype):
+                                        dtype, kw):
+    """K6 as routed (check_ivf asserts the route: rows of a multiple of 16
+    bytes take the row-split body, D = 40 int8 and D = 36 bf16 the first
+    body), at random probes of small clusters and chip_smoke.IVF_CASES."""
     before = launch_counts["ivf_probe_topk"]
-    err = chip_smoke.check_ivf(b, n_lists, n_probe, d, k, dtype, seed=k)
+    err = chip_smoke.check_ivf(b, n_lists, n_probe, d, k, dtype, seed=k,
+                               **kw)
     assert err <= chip_smoke.TOL
     assert launch_counts["ivf_probe_topk"] == before + 1
 

@@ -41,7 +41,8 @@ from tpurag_torch.core.config import BM25Config, EngineConfig, IVFConfig
 from tpurag_torch.core.types import Chunk
 from tpurag_torch.index import ivf as tivf
 from tpurag_torch.index.ivf import IVFIndex
-from tpurag_torch.kernels.ivf_scan import (ivf_probe_topk, ivf_probe_topk_ref,
+from tpurag_torch.kernels.ivf_scan import (ivf_chunk_rows, ivf_probe_topk,
+                                           ivf_probe_topk_ref, ivf_row_split,
                                            ivf_scan, probe_clusters)
 from tpurag_torch.kernels.runtime import NEG_INF
 
@@ -126,17 +127,18 @@ def _map_empty(ids):
     return np.where(ids >= _BIG, -1, ids)
 
 
-@pytest.mark.parametrize("name,nprobe,k", [
-    ("fp32", 8, 10), ("bf16", 8, 10), ("q8", 8, 16), ("q8", 64, 10),
-    ("small", 5, 20),  # every cluster, k past the 40 rows: empties
-])
-def test_probe_plain_matches_pallas(layouts, name, nprobe, k):
+def _probe_against_pallas(layouts, name, nprobe, k, b=4, mask=None):
+    """The plain version of K6 (and the wrapper, on CPU tensors) against
+    JAX's Pallas probe kernel in interpret mode on b queries' probe
+    tables; mask: (b, nprobe) probes given count 0 in both."""
     _, j, t = layouts[name]
-    rng = np.random.default_rng(nprobe + k)
-    q = _unit(rng.standard_normal((4, t.centroids.shape[1])).astype(
+    rng = np.random.default_rng(nprobe + k + b)
+    q = _unit(rng.standard_normal((b, t.centroids.shape[1])).astype(
         np.float32))
     nprobe = min(nprobe, j.n_lists)
     tables = _probe_tables(j, q, nprobe)
+    if mask is not None:
+        tables[1] = jnp.where(jnp.asarray(mask), 0, tables[1])
     quant = len(tables) == 3
     if quant:
         qj = jax_quantize_rows(jnp.asarray(q))[0]
@@ -160,6 +162,30 @@ def test_probe_plain_matches_pallas(layouts, name, nprobe, k):
     # On CPU tensors the K6 wrapper is the plain version.
     vv, vi = ivf_probe_topk(*args, **kw)
     assert torch.equal(vv, gv) and torch.equal(vi, gi)
+    return gv, gi
+
+
+@pytest.mark.parametrize("name,nprobe,k", [
+    ("fp32", 8, 10), ("bf16", 8, 10), ("q8", 8, 16), ("q8", 64, 10),
+    ("small", 5, 20),  # every cluster, k past the 40 rows: empties
+])
+def test_probe_plain_matches_pallas(layouts, name, nprobe, k):
+    _probe_against_pallas(layouts, name, nprobe, k)
+
+
+@pytest.mark.parametrize("case", ["masked", "one_query"])
+def test_probe_plain_matches_pallas_edges(layouts, case):
+    """Probes of count 0 inside the table (ivf_scan's nprobe_dyn mask),
+    one query's every probe among them; and a batch of one query."""
+    if case == "masked":
+        mask = np.zeros((4, 8), dtype=bool)
+        mask[:, 5:] = True
+        mask[1, 2] = True
+        mask[2] = True  # no rows at all: every slot empty
+        gv, gi = _probe_against_pallas(layouts, "q8", 8, 16, mask=mask)
+        assert (gi[2] == _BIG).all() and (gv[2] <= NEG_INF / 2).all()
+    else:
+        _probe_against_pallas(layouts, "q8", 8, 16, b=1)
 
 
 @pytest.mark.parametrize("name,rescore", [("q8", True), ("q8", False),
@@ -199,6 +225,63 @@ def test_nprobe_dyn_mask_matches_static(layouts):
         sv, si = ivf_scan(*args, nprobe=small, **kw)
         dv, di = ivf_scan(*args, nprobe=t.n_lists, nprobe_dyn=small, **kw)
         assert torch.equal(di, si) and torch.equal(dv, sv)
+
+
+def _split_rows(counts, chunk_rows, split):
+    """Each block's (query, probe, row) triples, walking its chunks from
+    its start as the kernel's producer does."""
+    n = np.where(counts > 0, -(-counts // chunk_rows), 0)
+    n[:, 0] = np.maximum(n[:, 0], 1)
+    flat = n.ravel()
+    p = counts.shape[1]
+    out = []
+    for c0, c1, b, pr, row in split:
+        e, j, rows = b * p + pr, row // chunk_rows, []
+        assert row % chunk_rows == 0 and j < flat[e]
+        for _ in range(c1 - c0):
+            while j >= flat[e]:
+                e, j = e + 1, 0
+            lo = j * chunk_rows
+            hi = min(lo + chunk_rows, max(int(counts.flat[e]), 0))
+            rows.append([(e // p, e % p, r) for r in range(lo, hi)])
+            j += 1
+        out.append(rows)
+    return out
+
+
+@pytest.mark.parametrize("case", ["random", "one_query", "empty_probes",
+                                  "no_rows"])
+def test_row_split_covers_every_row(case):
+    """ivf_row_split, the row-split body's split: every probed row falls in
+    exactly one block's share, no chunk crosses a cluster, and the shares
+    differ by at most one chunk; every query has a chunk, so a query with
+    no rows still reaches a block."""
+    rng = np.random.default_rng(7)
+    counts = {"random": lambda: rng.integers(0, 300, (32, 65)),
+              "one_query": lambda: np.array([[20_480]]),
+              "empty_probes": lambda: np.where(rng.random((8, 6)) < 0.5, 0,
+                                               rng.integers(1, 90, (8, 6))),
+              "no_rows": lambda: np.zeros((5, 3), dtype=np.int64)}[case]()
+    chunk_rows = ivf_chunk_rows(1024)  # int8 at D = 1024: 32 rows
+    for grid in (1, 7, 264):
+        split = ivf_row_split(counts, chunk_rows, grid)
+        total = sum(c1 - c0 for c0, c1, *_ in split)
+        assert len(split) == min(grid, total)
+        assert [c0 for c0, *_ in split[1:]] == [c1 for _, c1, *_ in split[:-1]]
+        shares = [c1 - c0 for c0, c1, *_ in split]
+        assert max(shares) - min(shares) <= 1
+        blocks = _split_rows(counts, chunk_rows, split)
+        seen = [t for rows in blocks for chunk in rows for t in chunk]
+        want = [(b, p, r) for b in range(counts.shape[0])
+                for p in range(counts.shape[1]) for r in range(counts[b, p])]
+        assert seen == want  # each row once, query-major then probe
+        for rows in blocks:
+            for chunk in rows:
+                assert len(chunk) <= chunk_rows
+                assert len({(b, p) for b, p, _ in chunk}) <= 1
+        queries = {b for c0, c1, b, *_ in split}
+        assert queries <= set(range(counts.shape[0]))
+    assert ivf_row_split(np.zeros((0, 4)), chunk_rows, 8) == []
 
 
 def test_probe_clusters_tie_order():
@@ -440,3 +523,25 @@ def test_kb_ivf_auto_refresh_on_sustained_ingest():
         < max(8, 0.25 * kb._ivf_built_at) + 40  # tail bounded again
     r = kb.search("later document about gears", mode="ivf", top_k=3)
     assert r.results and any("gears" in x.text for x in r.results)
+
+
+_K6_PROBES = ["full", "no_fold", "stream", "no_merge", "mem_lists",
+              "stages2", "stages4", "stages6", "stage16k", "stage64k",
+              "blocks2"]
+
+
+@pytest.mark.parametrize("probe", _K6_PROBES)
+def test_k6_anatomy_patches_apply(probe):
+    """tools/k6_anatomy.py times K6's row-split body with textual patches
+    of its source; each anchor must be in the source exactly once."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools/k6_anatomy.py"
+    spec = importlib.util.spec_from_file_location("k6_anatomy", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert sorted(tool.PROBES) == sorted(_K6_PROBES)
+    src = tool.patched(tool.PROBES[probe])
+    assert "ivf_rows_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")

@@ -57,7 +57,7 @@ FIRST_SOURCE = ROOT / "tools" / "bm25_combine_first.cu"
 CHUNK = "constexpr int CHUNK = 4096;"
 NO_JOIN = [("const int steps = (n + THREADS - 1) / THREADS;",
             "const int steps = 0;")]
-NO_ITEM_TOPK = [("        offer(has, key, my_list, k, kth);",
+NO_ITEM_TOPK = [("        tr::warp_key_offer(has, key, my_list, k, kth);",
                  "        if (has && key == 1ull) my_list[0] = key;")]
 NO_ROW_MERGE = [("  if (!s_last) return;", "  return;")]
 

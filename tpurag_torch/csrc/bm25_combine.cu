@@ -64,8 +64,9 @@ constexpr int NTILE = 2048;  // narrow lanes staged at a time
 constexpr int SLACK = 8;     // room for the head offset of an aligned copy
 constexpr int BIG = 1 << 30;
 constexpr float VALID = tr::kNegInf / 2;
-// A (score, doc) key (make_key); the 64-bit type the intrinsics take.
-using Key = unsigned long long;
+// A (score, doc) key (tr::make_key: a higher score, then a smaller doc,
+// sorts first; 0 is no entry).
+using tr::Key;
 constexpr size_t STAGE_BYTES = (size_t)2 * (CHUNK + NTILE + 2 * SLACK) * 4;
 // Warp lists live in shared memory up to this many bytes, else in a
 // device-memory scratch.
@@ -83,83 +84,6 @@ struct RowEntry {
   unsigned long long done;  // items finished; zero between launches
 };
 static_assert(sizeof(RowEntry) == 64, "RowEntry is 8 int64");
-
-// (score, doc) as one key: higher key = higher score, then smaller doc.
-// Scores are > 0, so their bits order as the floats do; 0 is no entry.
-__device__ __forceinline__ Key make_key(float v, int d) {
-  return ((Key)__float_as_uint(v) << 32) | (uint32_t)~d;
-}
-
-// Insert `key` into the descending warp list l[0, k), dropping l[k - 1].
-// The caller has checked that key > l[k - 1]; keys are distinct. All 32
-// lanes call it.
-__device__ void warp_insert(Key* l, int k, Key key) {
-  const int lane = threadIdx.x & 31;
-  int pos = 0;
-  for (int base = 0; base < k; base += 32) {
-    const int j = base + lane;
-    pos += __popc(__ballot_sync(tr::kFullMask, j < k && l[j] > key));
-  }
-  // Shift [pos, k - 1) up by one slot, highest chunk first.
-  for (int base = ((k - 1) >> 5) << 5; base >= 0; base -= 32) {
-    const int j = base + lane;
-    const bool write = j < k && j >= pos;
-    Key nk = key;
-    if (write && j > pos) nk = l[j - 1];
-    __syncwarp();
-    if (write) l[j] = nk;
-    __syncwarp();
-  }
-}
-
-// Offer each lane's candidate to the warp's list; kth = l[k - 1] in every
-// lane.
-__device__ __forceinline__ void offer(bool has, Key key, Key* l,
-                                      int k, Key& kth) {
-  unsigned want = __ballot_sync(tr::kFullMask, has && key > kth);
-  while (want) {
-    const int src = __ffs(want) - 1;
-    want &= want - 1;
-    const Key c = __shfl_sync(tr::kFullMask, key, src);
-    if (c > kth) {
-      warp_insert(l, k, c);
-      kth = l[k - 1];
-    }
-  }
-}
-
-// Entries of the descending list l[0, k) above key.
-__device__ __forceinline__ int count_above(const Key* l, int k,
-                                           Key key) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (l[mid] > key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// The top k of the WARPS descending lists lists[w * k, (w + 1) * k): each
-// entry's place is its index plus the entries above it in the other lists;
-// emit(place, key) for places 0 .. k - 1, key 0 past the last entry.
-template <class Emit>
-__device__ void merge_lists(const Key* lists, int k, Emit emit) {
-  int total = 0;
-  for (int w = 0; w < WARPS; ++w) total += count_above(lists + w * k, k, 0);
-  for (int e = threadIdx.x; e < WARPS * k; e += THREADS) {
-    const Key key = lists[e];
-    if (key == 0) continue;
-    const int own = e / k;
-    int place = e - own * k;
-    for (int w = 0; w < WARPS && place < k; ++w)
-      if (w != own) place += count_above(lists + w * k, k, key);
-    if (place < k) emit(place, key);
-  }
-  for (int j = total + threadIdx.x; j < k; j += THREADS) emit(j, 0ull);
-}
 
 // First index p in [0, n) of the ascending row doc with doc[p] >= x, else
 // n: a 32-ary search, one warp, every lane returns it.
@@ -323,7 +247,7 @@ __global__ void __launch_bounds__(THREADS)
               const bool wide = e < nas && As[e] == d && Asv[e] > VALID;
               const float v = Bv[jb];
               has = !wide && d < BIG && v > 0.f;
-              key = make_key(v, d);
+              key = tr::make_key(v, d);
             }
             ++jb;
           } else {
@@ -334,12 +258,12 @@ __global__ void __launch_bounds__(THREADS)
               if (jb > 0 && B[jb - 1] == d && Bv[jb - 1] > VALID)
                 v = __fadd_rn(Bv[jb - 1], v);
               has = d < BIG && v > 0.f;
-              key = make_key(v, d);
+              key = tr::make_key(v, d);
             }
             ++i;
           }
         }
-        offer(has, key, my_list, k, kth);
+        tr::warp_key_offer(has, key, my_list, k, kth);
       }
       __syncthreads();  // the tile is read; every warp list is current
     }
@@ -349,7 +273,8 @@ __global__ void __launch_bounds__(THREADS)
 
   // The item's top-k, sorted, into its scratch list.
   Key* out_list = ilist + (size_t)blockIdx.x * k;
-  merge_lists(lists, k, [&](int p, Key key) { out_list[p] = key; });
+  tr::merge_key_lists(lists, WARPS, k, tid, THREADS,
+                      [&](int p, Key key) { out_list[p] = key; });
   __threadfence();
   __syncthreads();
   if (tid == 0) {
@@ -370,7 +295,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int base = 0; base < k; base += 32) {
       const int e = base + lane;
       const Key key = e < k ? __ldcg(src + e) : 0ull;
-      offer(key != 0, key, my_list, k, kth);
+      tr::warp_key_offer(key != 0, key, my_list, k, kth);
       // The list is descending: once its chunk ends at or below the warp's
       // k-th, nothing after it enters.
       if (__shfl_sync(tr::kFullMask, key, 31) <= kth) break;
@@ -379,9 +304,9 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   float* ov = out_v + sel * k;
   int* oi = out_i + sel * k;
-  merge_lists(lists, k, [&](int p, Key key) {
-    ov[p] = key ? __uint_as_float((uint32_t)(key >> 32)) : tr::kNegInf;
-    oi[p] = key ? (int)~(uint32_t)key : -1;
+  tr::merge_key_lists(lists, WARPS, k, tid, THREADS, [&](int p, Key key) {
+    ov[p] = key ? tr::key_value(key) : tr::kNegInf;
+    oi[p] = key ? tr::key_id(key) : -1;
   });
 }
 

@@ -1,7 +1,8 @@
 // Hopper pieces shared by the TMA + wgmma bodies of K1
 // (dense_topk_sm90.cu, bf16), K5 (dense_topk_q8_sm90.cu, int8) and K7
 // (dense_topk_co_sm90.cu, bf16) and by
-// the bulk-copy staging of K3 (bm25_full.cu) and K4 (bm25_combine.cu): the
+// the bulk-copy staging of K3 (bm25_full.cu), K4 (bm25_combine.cu) and
+// K6's row-split ring (ivf_probe.cu): the
 // mbarrier, TMA and bulk copy helpers, the staging of an unaligned range,
 // the wgmma descriptor of a 128-byte-swizzled K-major box and the fences
 // around asynchronous products, and the tensor-map encoder, fetched at run
@@ -123,6 +124,12 @@ __device__ __forceinline__ void plain_edges(int* dst, const int* src,
                                             int step) {
   for (int o = s.h + first; o < s.mid0; o += step) dst[o] = src[o - s.h];
   for (int o = s.mid1 + first; o < s.end; o += step) dst[o] = src[o - s.h];
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over the first `threads`
+// threads of the block (a multiple of 32): the warps that take part.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Make freshly initialised barriers visible to the copy engine.

@@ -153,4 +153,116 @@ __device__ inline void block_topk(float* cv, int* ci, int m, int k,
   }
 }
 
+// A (score, id) pair as one 64-bit key whose unsigned order is the list
+// order: the higher score first, then the smaller id. Negative scores are
+// flipped so their bits order as the floats do, and -0 counts as +0 (the
+// two compare equal); 0 is no entry.
+using Key = unsigned long long;
+
+__device__ __forceinline__ Key make_key(float v, int id) {
+  uint32_t u = __float_as_uint(v + 0.f);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((Key)u << 32) | (uint32_t)~id;
+}
+
+__device__ __forceinline__ float key_value(Key key) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int key_id(Key key) { return (int)~(uint32_t)key; }
+
+// Insert key into the descending list l[0, k) (shared or global memory),
+// dropping l[k - 1]. The caller has checked that key > l[k - 1]; keys are
+// distinct. All 32 lanes of the warp call it.
+__device__ inline void warp_key_insert(Key* l, int k, Key key) {
+  const int lane = threadIdx.x & 31;
+  int pos = 0;
+  for (int base = 0; base < k; base += 32) {
+    const int j = base + lane;
+    pos += __popc(__ballot_sync(kFullMask, j < k && l[j] > key));
+  }
+  // Shift [pos, k - 1) up by one slot, highest chunk first.
+  for (int base = ((k - 1) >> 5) << 5; base >= 0; base -= 32) {
+    const int j = base + lane;
+    const bool write = j < k && j >= pos;
+    Key nk = key;
+    if (write && j > pos) nk = l[j - 1];
+    __syncwarp();
+    if (write) l[j] = nk;
+    __syncwarp();
+  }
+}
+
+// Offer each lane's candidate to the warp's list; kth = l[k - 1] in every
+// lane, kept current.
+__device__ __forceinline__ void warp_key_offer(bool has, Key key, Key* l,
+                                               int k, Key& kth) {
+  unsigned want = __ballot_sync(kFullMask, has && key > kth);
+  while (want) {
+    const int src = __ffs(want) - 1;
+    want &= want - 1;
+    const Key c = __shfl_sync(kFullMask, key, src);
+    if (c > kth) {
+      warp_key_insert(l, k, c);
+      kth = l[k - 1];
+    }
+  }
+}
+
+// The same for a list of k <= 32 keys held one a lane (lane j holds entry
+// j; lanes past k hold 0): an entry's place is a ballot, the shift a
+// shuffle.
+__device__ __forceinline__ void warp_reg_offer(bool has, Key key, Key& reg,
+                                               int k, Key& kth) {
+  const int lane = threadIdx.x & 31;
+  unsigned want = __ballot_sync(kFullMask, has && key > kth);
+  while (want) {
+    const int src = __ffs(want) - 1;
+    want &= want - 1;
+    const Key c = __shfl_sync(kFullMask, key, src);
+    if (c > kth) {
+      const int pos = __popc(__ballot_sync(kFullMask, lane < k && reg > c));
+      const Key up = __shfl_up_sync(kFullMask, reg, 1);
+      if (lane < k && lane >= pos) reg = lane == pos ? c : up;
+      kth = __shfl_sync(kFullMask, reg, k - 1);
+    }
+  }
+}
+
+// Entries of the descending list l[0, k) above key.
+__device__ __forceinline__ int key_count_above(const Key* l, int k,
+                                               Key key) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (l[mid] > key)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The top k of the n descending lists lists[w * k, (w + 1) * k), keys
+// distinct: each entry's place is its index plus the entries above it in
+// the other lists. emit(place, key) for places 0 .. k - 1, key 0 past the
+// last entry. Threads tid = 0 .. nthreads - 1 call it.
+template <class Emit>
+__device__ void merge_key_lists(const Key* lists, int n, int k, int tid,
+                                int nthreads, Emit emit) {
+  int total = 0;
+  for (int w = 0; w < n; ++w) total += key_count_above(lists + w * k, k, 0);
+  for (int e = tid; e < n * k; e += nthreads) {
+    const Key key = lists[e];
+    if (key == 0) continue;
+    const int own = e / k;
+    int place = e - own * k;
+    for (int w = 0; w < n && place < k; ++w)
+      if (w != own) place += key_count_above(lists + w * k, k, key);
+    if (place < k) emit(place, key);
+  }
+  for (int j = total + tid; j < k; j += nthreads) emit(j, 0ull);
+}
+
 }  // namespace tr

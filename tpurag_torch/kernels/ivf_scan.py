@@ -11,21 +11,29 @@ descending, ties to the smaller id; empty slots (NEG_INF, >= 2^30)).
 probe choice, the scan (int8 with an exact rescore, or bf16 / fp32) and
 the map back to original row ids (-1 for empty slots).
 
+K6 has two bodies (csrc/ivf_probe.cu). Calls whose rows a bulk copy can
+take (``ivf_sm90_route``) go to the row-split body: every query's probed
+rows are cut into chunks of ``ivf_chunk_rows`` rows that never cross a
+cluster and dealt to a grid sized to the card in equal shares
+(``ivf_row_split`` is the kernel's split), one launch per search. Every
+other call takes the first body, one block per query.
+
 CPU tensors take ``ivf_probe_topk_ref``, the plain version; CUDA tensors
-launch the kernel or raise.
+launch a kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from tpurag_torch.kernels.dense import DTYPE_CODE
 from tpurag_torch.kernels.quant import _exact_dots, quantize_rows, rescore_topk
-from tpurag_torch.kernels.runtime import (NEG_INF, cdiv, check_launch,
-                                          cuda_stream, launch_counts,
-                                          load_kernels)
+from tpurag_torch.kernels.runtime import (NEG_INF, check_launch, cuda_stream,
+                                          launch_counts, load_kernels)
 
 _BIG = 2**30
 # Layout contracts of the JAX package's builds, kept so that partitions
@@ -37,12 +45,13 @@ _BIG = 2**30
 # any alignment.
 IVF_SCAN_EXTENT = 512
 IVF_ALIGN = 128
-# Blocks the probe split aims for (two per SM on a 132-SM H100), the
-# candidates per query the merge pass holds, and the largest k (each warp
-# keeps a k-entry list in shared memory).
-TARGET_BLOCKS = 264
-MAX_MERGE_CANDIDATES = 8192
+# The largest k (each warp keeps a k-entry list).
 MAX_K = 2048
+# The row-split body: the bytes and rows of a chunk (one stage of its
+# shared-memory ring), and its consumer warps (each keeps a k-entry list).
+ROWS_STAGE_BYTES = 32768
+ROWS_MAX_CHUNK = 256
+ROWS_WARPS = 8
 
 _STORE_CODE = {**DTYPE_CODE, torch.int8: 2}
 
@@ -81,11 +90,93 @@ def ivf_probe_topk_ref(q, emb_ivf, starts_sel, counts_sel, k: int,
     return out_v, out_i
 
 
-def probe_splits(b: int, n_probe: int, k: int) -> int:
-    """Probe slices per query: enough blocks to fill the card, at most one
-    slice per probe, and few enough partial lists for the merge pass."""
-    s = min(cdiv(TARGET_BLOCKS, max(b, 1)), max(n_probe, 1))
-    return max(1, min(s, MAX_MERGE_CANDIDATES // k))
+def ivf_chunk_rows(row_bytes: int) -> int:
+    """Rows of one chunk of the row-split body: a 32 KB stage, at most 256
+    rows."""
+    return min(ROWS_MAX_CHUNK, ROWS_STAGE_BYTES // row_bytes)
+
+
+def ivf_sm90_route(q, emb_ivf, n_probe: int) -> bool:
+    """Whether a K6 call takes the row-split body: int8, bf16 or fp32 rows
+    of a multiple of 16 bytes up to one 32 KB stage, the IVF matrix and
+    the queries (in the storage type) 16-byte aligned, as a bulk copy
+    takes them, and at least one probe. Every other call takes the first
+    body."""
+    row_bytes = emb_ivf.shape[1] * emb_ivf.element_size()
+    return (emb_ivf.dtype in _STORE_CODE and row_bytes % 16 == 0
+            and 0 < row_bytes <= ROWS_STAGE_BYTES and n_probe > 0
+            and emb_ivf.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+
+
+def ivf_row_split(counts, chunk_rows: int, grid: int) -> list:
+    """The row-split body's split, as each of its blocks computes it: a
+    copy of the kernel's arithmetic (csrc/ivf_probe.cu's setup), which no
+    launch calls, so that tests can check the split on the CPU. The card
+    tests hold ``ivf_chunk_rows`` to the kernel's chunk rows.
+
+    Entry (b, p) of the (B, n_probe) counts table holds ceil(count /
+    chunk_rows) chunks, and a query's first probe at least one (an empty
+    one when the query has no rows). The C chunks, query-major then probe,
+    go to G = min(grid, C) blocks, block g taking chunks floor(g C / G) ..
+    floor((g + 1) C / G). Returns one (c0, c1, query, probe, first row in
+    the cluster) per block that has a share."""
+    counts = np.asarray(counts, dtype=np.int64)
+    if counts.size == 0:
+        return []
+    p = counts.shape[1]
+    n = np.where(counts > 0, -(-counts // chunk_rows), 0)
+    n[:, 0] = np.maximum(n[:, 0], 1)
+    prefix = np.concatenate([[0], np.cumsum(n.ravel())])
+    total = int(prefix[-1])
+    g_eff = min(grid, total)
+    out = []
+    for g in range(g_eff):
+        c0, c1 = g * total // g_eff, (g + 1) * total // g_eff
+        e = int(np.searchsorted(prefix, c0, side="right")) - 1
+        out.append((c0, c1, e // p, e % p,
+                    (c0 - int(prefix[e])) * chunk_rows))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """A kernel library entry point with its argument types."""
+    fn = getattr(load_kernels(), name)
+    fn.restype = ctypes.c_int
+    ptrs = [ctypes.c_void_p]
+    fn.argtypes = {
+        "tr_ivf_rows_config": [ctypes.c_int] * 3 + ptrs,
+        "tr_ivf_probe_topk": (ptrs * 2 + [ctypes.c_int] + ptrs * 3
+                              + [ctypes.c_int] * 4 + ptrs * 3),
+        "tr_ivf_probe_rows": (ptrs * 2 + [ctypes.c_int] + ptrs * 3
+                              + [ctypes.c_int] * 5 + ptrs * 6),
+    }[name]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def ivf_rows_config(code: int, d: int, k: int, device_index: int) -> tuple:
+    """(grid, chunk rows, warp lists in device memory) of the row-split
+    body for a storage code, D and k on a device: the grid is the SMs
+    times the blocks per SM that its shared memory and registers allow."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        check_launch(_entry("tr_ivf_rows_config")(code, d, k, out),
+                     "ivf_probe_topk")
+    return tuple(out)
+
+
+# The row-split body's per-query completion counters, by (device, stream):
+# zero when made, and every launch leaves them zero.
+_rows_state: dict = {}
+
+
+def _state(dev, stream: int, b: int):
+    state = _rows_state.get((dev.index, stream))
+    if state is None or state.numel() < 4 * b:
+        state = torch.zeros(4 * max(b, 64), dtype=torch.int32, device=dev)
+        _rows_state[(dev.index, stream)] = state
+    return state
 
 
 def ivf_probe_topk(q, emb_ivf, starts_sel, counts_sel, k: int,
@@ -97,8 +188,10 @@ def ivf_probe_topk(q, emb_ivf, starts_sel, counts_sel, k: int,
     then int8). emb_ivf (Npad, D) cluster-major; starts_sel / counts_sel
     (B, n_probe) int32. Returns (B, k) fp32 scores (int8: before the query
     scale) and int32 IVF-row ids, empty slots (NEG_INF, 2^30). CPU tensors
-    take the plain version; CUDA tensors launch K6 (csrc/ivf_probe.cu) or
-    raise."""
+    take the plain version; CUDA tensors launch K6 (csrc/ivf_probe.cu: the
+    row-split body where ``ivf_sm90_route`` says so, else the first body;
+    both count under "ivf_probe_topk", the row-split body also under
+    "ivf_probe_topk_sm90") or raise."""
     if emb_ivf.device.type == "cpu":
         return ivf_probe_topk_ref(q, emb_ivf, starts_sel, counts_sel, k,
                                   scales_sel)
@@ -135,20 +228,28 @@ def ivf_probe_topk(q, emb_ivf, starts_sel, counts_sel, k: int,
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_v, out_i
-    splits = probe_splits(b, n_probe, k)
-    part_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
-    fn = load_kernels().tr_ivf_probe_topk
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5)
-    err = fn(qs.data_ptr(), emb_ivf.data_ptr(), _STORE_CODE[emb_ivf.dtype],
-             tables[0].data_ptr(), tables[1].data_ptr(),
-             tables[2].data_ptr() if quant else None, b, n_probe, d, k,
-             splits, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-             out_i.data_ptr(), cuda_stream(dev))
-    check_launch(err, "ivf_probe_topk")
+    code = _STORE_CODE[emb_ivf.dtype]
+    scales = tables[2].data_ptr() if quant else None
+    stream = cuda_stream(dev)
+    if ivf_sm90_route(qs, emb_ivf, n_probe):
+        grid, _, global_lists = ivf_rows_config(code, d, k, dev.index or 0)
+        part = torch.empty((grid + b) * k, dtype=torch.int64, device=dev)
+        glists = (torch.empty(grid * ROWS_WARPS * k, dtype=torch.int64,
+                              device=dev) if global_lists else None)
+        err = _entry("tr_ivf_probe_rows")(
+            qs.data_ptr(), emb_ivf.data_ptr(), code, tables[0].data_ptr(),
+            tables[1].data_ptr(), scales, b, n_probe, d, k, grid,
+            part.data_ptr(), _state(dev, stream.value, b).data_ptr(),
+            None if glists is None else glists.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), stream)
+        check_launch(err, "ivf_probe_topk")
+        launch_counts["ivf_probe_topk_sm90"] += 1
+    else:
+        err = _entry("tr_ivf_probe_topk")(
+            qs.data_ptr(), emb_ivf.data_ptr(), code, tables[0].data_ptr(),
+            tables[1].data_ptr(), scales, b, n_probe, d, k, out_v.data_ptr(),
+            out_i.data_ptr(), stream)
+        check_launch(err, "ivf_probe_topk")
     launch_counts["ivf_probe_topk"] += 1
     return out_v, out_i
 
