@@ -8,6 +8,13 @@ exactly, scores within 1e-5 unpacked and 1e-6 relative packed, as in
 test_torch_bm25.py. The windows include clamped starts, zero lengths,
 docs past n_valid and k above the candidate count.
 
+The kernel runs the network on a row's live lanes only (pads hold the
+row's largest value, so a pad never moves and a live lane facing one
+goes to the comparator's min side). ``live_lane_rows`` below is a numpy
+model of that executor, the kernel's load included (window lengths, the
+packed row max over every lane with invalid lanes as 0), held bit for
+bit to the plain version's full network and window sums.
+
 bm25_topk_segsum and bm25_topk (the scatter-add cross-check) are plain
 torch in both packages' sense (XLA code in JAX): held to JAX's on the
 cases of tests/test_bm25_segsum.py. Their scores are differences of
@@ -22,14 +29,17 @@ import torch
 
 import chip_smoke
 from test_bm25_segsum import make_args
+from tpurag_torch.eval.bench import hybrid_inputs
 from tpurag.kernels.bm25 import bm25_topk as jax_bm25_topk
 from tpurag.kernels.bm25 import bm25_topk_segsum as jax_segsum
 from tpurag.kernels.bm25_pallas import bm25_topk_fused as jax_fused
 from tpurag_torch.index.inverted import packed_cbits
 from tpurag_torch.kernels import bm25_merge
 from tpurag_torch.kernels.bm25 import bm25_topk, bm25_topk_segsum
-from tpurag_torch.kernels.bm25_merge import (bm25_topk_fused,
-                                             bm25_topk_fused_ref)
+from tpurag_torch.kernels.bm25_merge import (_bitonic_rows, bm25_topk_fused,
+                                             bm25_topk_fused_ref,
+                                             flip_odd_blocks)
+from tpurag_torch.kernels.bm25 import gather_candidates
 from tpurag_torch.kernels.runtime import NEG_INF, launch_counts
 
 N_DOCS = 3000
@@ -214,8 +224,215 @@ def test_segsum_and_fused_no_hits():
     ("dense_co_resident_q_kernel", "K7"),
     ("dense_scan_kernel<signed char>", "K5"),
     ("dense_scan_kernel<__nv_bfloat16>", "K1"),
+    ("rescore_topk_kernel<__nv_bfloat16>", "K8"),
 ])
 def test_profile_names_map_to_port_kernels(name, kernel):
     """chip_smoke's profile sums device time by port kernel: K2's body is
     topk_rows_kernel, K2''s the templated merge_segsum_kernel<PACKED>."""
     assert chip_smoke.port_kernel(name) == kernel
+
+
+BIG = 2**30
+PAD_KEY = 2**31 - 1
+
+
+def live_lane_rows(starts, lens, idf, post_doc, post_impact, n_valid, p,
+                   cbits):
+    """numpy model of csrc/bm25_merge.cu's live-lane network, row by row:
+    the lanes of each window (odd windows flipped) are loaded, a lane is
+    live if o < len, doc < n_valid and (packed) its key is no pad; the
+    network's stages then run over the live lanes alone, each finding its
+    partner at pos ^ s. Returns (seg, doc_s, live positions): the
+    t-window sums at the live segment ends (NEG_INF elsewhere) and the
+    merged doc row, as _bitonic_rows gives them."""
+    b, t = starts.shape
+    w = t * p
+    lim = max(len(post_doc) - p, 0)
+    lane = np.arange(w)
+    src = np.where(lane & p, lane ^ (p - 1), lane)
+    j, o = src // p, src % p
+    segs, docs, where = [], [], []
+    for row in range(b):
+        at = np.clip(starts[row, j], 0, lim) + o
+        inw = o < lens[row, j]
+        at = np.where(inw, at, 0)  # a lane past its window reads nothing
+        d = np.where(inw, post_doc[at], BIG)
+        valid = inw & (d < n_valid)
+        d = np.where(valid, d, BIG).astype(np.int64)
+        c = np.where(valid, idf[row, j] * post_impact[at],
+                     np.float32(0)).astype(np.float32)
+        if cbits:
+            qmax = (1 << cbits) - 1
+            safe = np.maximum(c.max(), np.float32(1e-30))
+            q = np.clip(np.rint((c / safe) * np.float32(qmax)).astype(
+                np.int64), 0, qmax)
+            key = np.where(d < (PAD_KEY >> cbits), (d << cbits) | q, PAD_KEY)
+            pad = PAD_KEY
+        else:
+            key, pad = d.copy(), BIG
+        cs = c.copy()
+        pos = np.nonzero(key != pad)[0]
+        kk = 2 * p
+        while kk <= w:
+            s = kk // 2
+            while s >= 1:
+                # Pairs are disjoint within a stage: one vector step.
+                part, lo = pos ^ s, pos & ~s
+                asc = (lo & kk) == 0
+                empty = key[part] == pad
+                to = np.where(asc, lo, lo | s)
+                ex = ~empty & (pos == lo)
+                a, bb = key[pos[ex]], key[part[ex]]
+                swap = np.where(asc[ex], a > bb, a < bb)
+                x, y = pos[ex][swap], part[ex][swap]
+                key[x], key[y] = key[y].copy(), key[x].copy()
+                cs[x], cs[y] = cs[y].copy(), cs[x].copy()
+                mv = empty & (to != pos)
+                f, g = pos[mv], to[mv]
+                key[g], cs[g] = key[f], cs[f]
+                key[f], cs[f] = pad, 0.0
+                pos = np.where(mv, to, pos)
+                s //= 2
+            kk *= 2
+        if cbits:
+            doc_s = key >> cbits
+            con = (key & qmax).astype(np.float32) * np.float32(
+                safe / np.float32(qmax))
+        else:
+            doc_s, con = key, cs
+        seg = np.full(w, np.float32(NEG_INF), np.float32)
+        for i in pos:
+            if i != w - 1 and doc_s[i + 1] == doc_s[i]:
+                continue
+            total = np.float32(con[i])
+            for back in range(1, t):
+                same = i >= back and doc_s[i - back] == doc_s[i]
+                total = np.float32(total + (con[i - back] if same
+                                            else np.float32(0)))
+            seg[i] = total
+        segs.append(seg)
+        docs.append(doc_s.astype(np.int32))
+        where.append(np.sort(pos))
+    return np.stack(segs), np.stack(docs), where
+
+
+def _windows_lead(starts, lens, post_doc, n_valid, p, cbits):
+    """Per row: True if in every window the live lanes come first (the
+    0-1 image of each block sorted), the case in which the network leaves
+    the live lanes as the row's prefix."""
+    lim = max(len(post_doc) - p, 0)
+    out = []
+    for row in range(starts.shape[0]):
+        ok = True
+        for jj in range(starts.shape[1]):
+            n = int(np.clip(lens[row, jj], 0, p))
+            d = post_doc[np.clip(starts[row, jj], 0, lim) + np.arange(n)]
+            live = d < n_valid
+            if cbits:
+                live &= d < (PAD_KEY >> cbits)
+            ok &= bool(np.all(live[:live.sum()]))
+        out.append(ok)
+    return out
+
+
+def _special_windows(name: str):
+    """The live-lane model's edge cases: (starts, lens, idf, post_doc,
+    post_impact, n_valid, p)."""
+    rng = np.random.default_rng(len(name))
+    if name == "eval_draw":  # hybrid_inputs' CPU draw: docs repeat
+        x = hybrid_inputs(device="cpu")
+        return (*(x[n].numpy() for n in ("starts", "lens", "idf", "post_doc",
+                                         "post_impact")), x["n_valid"],
+                x["p_max"])
+    t, p, n_docs = 8, 16, 500
+    post_doc = np.sort(rng.integers(0, n_docs, 40 * p)).astype(np.int32)
+    post_impact = rng.uniform(0.2, 2.0, len(post_doc)).astype(np.float32)
+    idf = rng.uniform(0.5, 3.0, (4, t)).astype(np.float32)
+    starts = rng.integers(0, len(post_doc) - p, (4, t)).astype(np.int32)
+    lens = np.full((4, t), p, np.int32)
+    n_valid = n_docs
+    if name == "clamped":  # starts past nnz - p, and mid-list ones
+        starts[:, ::2] = len(post_doc) - rng.integers(1, p, (4, t // 2))
+        post_doc[-p:] = rng.integers(0, n_docs, p)  # unsorted tail
+        lens[:, 1::2] = rng.integers(0, p + 1, (4, t // 2))
+    elif name == "empty":  # an empty row, empty windows
+        lens[0] = 0
+        lens[1:, ::3] = 0
+        n_valid = n_docs // 2
+    elif name == "one_live":  # one live lane, in an odd (flipped) window
+        lens[:] = 0
+        lens[:, 3] = 1
+        post_doc[starts[:, 3]] = np.arange(4)
+    elif name == "full":  # every lane live
+        pass
+    return starts, lens, idf, post_doc, post_impact, n_valid, p
+
+
+def _check_live_model(arrays, n_valid, p, cbits):
+    starts = arrays[0]
+    t = starts.shape[1]
+    seg, doc_s, where = live_lane_rows(*arrays, n_valid, p, cbits)
+    doc, con = gather_candidates(*(torch.from_numpy(x) for x in arrays),
+                                 n_valid, p)
+    if t > 1:
+        doc, con = flip_odd_blocks(doc, p, t), flip_odd_blocks(con, p, t)
+    want_seg, want_doc, _ = _bitonic_rows(doc, con, p, t, cbits)
+    np.testing.assert_array_equal(doc_s, want_doc.numpy())
+    np.testing.assert_array_equal(seg.view(np.int32),
+                                  want_seg.numpy().view(np.int32))
+    lead = _windows_lead(starts, arrays[1], arrays[3], n_valid, p, cbits)
+    for ok, pos in zip(lead, where):
+        if ok:  # the live lanes end as the row's prefix
+            np.testing.assert_array_equal(pos, np.arange(len(pos)))
+    return lead, where
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("p", [8, 16, 64])
+@pytest.mark.parametrize("t", [1, 2, 4, 8])
+def test_live_lane_network_matches_bitonic_rows(t, p, packed):
+    """The live-lane executor gives _bitonic_rows' merged row and sums bit
+    for bit on chip_smoke.csr_windows (clamped starts, empty windows,
+    docs past n_valid); where each window's live lanes lead it, they end
+    as the row's prefix."""
+    rng = np.random.default_rng(t * 1000 + p + packed)
+    *arrays, n_valid = chip_smoke.csr_windows(rng, 6, t, p, N_DOCS)
+    cbits = packed_cbits(N_DOCS) if packed else 0
+    lead, where = _check_live_model(arrays, n_valid, p, cbits)
+    assert any(len(x) for x in where)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("case", ["eval_draw", "clamped", "empty",
+                                  "one_live", "full"])
+def test_live_lane_network_edge_cases(case, packed):
+    *arrays, n_valid, p = _special_windows(case)
+    cbits = packed_cbits(max(n_valid, 2)) if packed else 0
+    lead, where = _check_live_model(arrays, n_valid, p, cbits)
+    t = arrays[0].shape[1]
+    n_live = [len(x) for x in where]
+    if case == "eval_draw":
+        assert all(lead) and max(n_live) > 0
+    elif case == "empty":
+        assert n_live[0] == 0 and max(n_live) > 0
+    elif case == "one_live":
+        assert n_live == [1] * len(n_live)
+    elif case == "full":
+        assert n_live == [t * p] * len(n_live)
+    elif case == "clamped":
+        assert (arrays[0] > len(arrays[3]) - p).any()
+
+
+_K2F_PROBES = ["full", "one_block", "two_blocks", "topk_smem", "no_network",
+               "no_topk", "load_only"]
+
+
+@pytest.mark.parametrize("probe", _K2F_PROBES)
+def test_k2f_anatomy_patches_apply(probe):
+    """tools/k2f_anatomy.py times K2' with textual patches of its source;
+    each anchor must be in the source exactly once."""
+    tool = chip_smoke.load_tool("k2f_anatomy")
+    assert sorted(tool.PROBES) == sorted(_K2F_PROBES)
+    src = tool.patched(tool.PROBES[probe])
+    assert "merge_segsum_kernel" in src
+    assert (src == tool.patched([])) == (probe == "full")

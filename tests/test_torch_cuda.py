@@ -291,6 +291,25 @@ def test_fused_bm25_kernel_matches_plain(cuda, t, p_max, cbits):
     assert launch_counts["bm25_topk_fused"] == before + 1
 
 
+@pytest.mark.parametrize("cbits", [14, 0])
+@pytest.mark.parametrize("name", list(chip_smoke.FUSED_CASES))
+def test_fused_bm25_kernel_edge_cases(cuda, name, cbits):
+    """K2' at every lane live (the full network), rows on both sides of
+    the W/2 route in one launch, one live lane and none: bit-identical,
+    one launch."""
+    before = launch_counts["bm25_topk_fused"]
+    chip_smoke.check_fused_case(name, cbits)
+    assert launch_counts["bm25_topk_fused"] == before + 1
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.RESCORE_CASES))
+def test_rescore_kernel_matches_plain(cuda, name):
+    """K8's rescore in one launch against rescore_topk_ref."""
+    before = launch_counts["rescore_topk"]
+    assert chip_smoke.check_rescore(name) <= 1e-5
+    assert launch_counts["rescore_topk"] == before + 1
+
+
 @pytest.mark.parametrize("b,n_rows,n_valid,d,k,dtype", [
     (130, 2500, 2500, 96, 5, torch.bfloat16),   # multi query-tile
     (9, 257, 200, 130, 3, torch.float32),       # unaligned D, n_valid < N

@@ -25,7 +25,8 @@ from tpurag_torch.kernels.quant import (Q8_RESIDENT_MAX_D, dense_scan_q8,
                                         dense_scan_q8_ref, dense_topk_q8,
                                         gather_scores, gather_scores_ref,
                                         q8_sm90_route, q8_sm90_tile,
-                                        quantize_rows, rescore_topk)
+                                        quantize_rows, rescore_topk,
+                                        rescore_topk_ref)
 from tpurag_torch.kernels.runtime import cdiv
 
 torch.set_float32_matmul_precision("highest")
@@ -119,6 +120,82 @@ def test_rescore_topk_matches_jax_with_duplicates_and_empties():
         np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
         np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
         assert len(set(gi.numpy()[0][gi.numpy()[0] >= 0])) == min(k, 12)
+
+
+def _rescore_case(name: str):
+    """(queries, corpus, candidate ids, k) of a rescore edge case."""
+    rng = np.random.default_rng(len(name))
+    q, emb = _unit(rng, 5, 32), _unit(rng, 300, 32)
+    top = np.argsort(-(q @ emb.T), axis=1)
+    k = 6
+    if name == "duplicates":  # ids repeated, the first lane not the best
+        cand = np.concatenate([top[:, 4:0:-1], top[:, :6], top[:, 2:3]], 1)
+    elif name == "empties":  # -1 ids anywhere, an all -1 row
+        cand = top[:, :10].copy()
+        cand[:, ::3] = -1
+        cand[2] = -1
+    elif name == "m_below_k":  # M = 4 < k
+        cand, k = top[:, [3, 0, 2, 1]], 9
+    else:  # "ties": rows 10..14 copy row 0, so their dots tie with it
+        emb[10:15] = emb[0]
+        cand = np.concatenate([np.full((5, 1), 12), top[:, :4],
+                               np.full((5, 1), 0), np.full((5, 1), 14)], 1)
+        q[0] = emb[0]  # row 0 and its copies are query 0's best
+    return q, emb, cand.astype(np.int32), k
+
+
+def _rescore_model(q, emb, cand, k):
+    """numpy model of csrc/gather_scores.cu's rescore: a lane keeps its id
+    unless it is < 0 or repeats an earlier lane's; each kept candidate's
+    slot is the count of kept ones sorting before it (score desc, id
+    asc)."""
+    b, m = cand.shape
+    out_v = np.full((b, k), np.float32(-3.0e38), np.float32)
+    out_i = np.full((b, k), -1, np.int32)
+    for r in range(b):
+        kept = [(np.float32(q[r] @ emb[i]), int(i))
+                for j, i in enumerate(cand[r])
+                if i >= 0 and i not in cand[r, :j]]
+        for s, i in kept:
+            rank = sum(s2 > s or (s2 == s and i2 < i) for s2, i2 in kept)
+            if rank < k:
+                out_v[r, rank], out_i[r, rank] = s, i
+    return out_v, out_i
+
+
+@pytest.mark.parametrize("case", ["duplicates", "empties", "m_below_k",
+                                  "ties"])
+def test_rescore_topk_ref_matches_jax(case):
+    """rescore_topk_ref (the plain version the CPU takes) against JAX's
+    rescore_topk, and the fused kernel's keep-and-rank rule (a numpy model)
+    against both."""
+    q, emb, cand, k = _rescore_case(case)
+    # JAX's top_k needs k <= M: it gets the candidates padded with -1 (no
+    # candidate) to k, which the port's plain version does itself.
+    pad = np.full((len(cand), max(k - cand.shape[1], 0)), -1, np.int32)
+    wv, wi = jq.rescore_topk(jnp.asarray(q), jnp.asarray(emb),
+                             jnp.asarray(np.concatenate([cand, pad], 1)), k)
+    gv, gi = rescore_topk_ref(_t(q), _t(emb), _t(cand), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-6)
+    mv, mi = _rescore_model(q, emb, cand, k)
+    np.testing.assert_array_equal(mi, gi.numpy())
+    np.testing.assert_allclose(mv, gv.numpy(), atol=1e-6)
+    cv, ci = rescore_topk(_t(q), _t(emb), _t(cand), k)  # CPU: the same
+    assert torch.equal(cv, gv) and torch.equal(ci, gi)
+    if case == "ties":
+        assert gi[0, :3].tolist() == [0, 12, 14]
+    if case == "m_below_k":
+        assert (gi[:, 4:] == -1).all()
+    if case == "empties":
+        assert (gi[2] == -1).all()
+
+
+def test_rescore_wrapper_rejects_unsupported_device():
+    x = torch.zeros((2, 8), device="meta")
+    ids = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rescore_topk(x, x, ids, 2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

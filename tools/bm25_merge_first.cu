@@ -1,8 +1,11 @@
-// K2's first body, no longer built into the library: tools/k2_anatomy.py
-// and chip_smoke.py build it on its own (entry tr_merge_segsum_topk) to time
-// the current body (tpurag_torch/csrc/bm25_topk.cu) against, on rows
-// gathered beforehand (odd slots flipped). The file is csrc/bm25_merge.cu
-// as it was, K2' included.
+// The first bodies of K2 and K2', no longer built into the library:
+// tools/k2_anatomy.py and chip_smoke.py build this file on its own to time
+// the current bodies against. Entry tr_merge_segsum_topk is K2's first
+// body (the current one is tpurag_torch/csrc/bm25_topk.cu), on rows
+// gathered beforehand (odd slots flipped); entry tr_bm25_topk_fused is
+// K2''s, the full network over every lane of the row (the current one,
+// tpurag_torch/csrc/bm25_merge.cu, runs it on the live lanes). The file is
+// csrc/bm25_merge.cu as it was before either was redesigned.
 //
 // K2: BM25 bitonic merge + segment sum + top-k for Hopper (sm_90a).
 //

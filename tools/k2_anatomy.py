@@ -92,6 +92,31 @@ def build_first(out: pathlib.Path):
     return fn
 
 
+def first_fused(out: pathlib.Path):
+    """K2''s first body's C entry, tr_bm25_topk_fused, from the library
+    that build_first(out) built."""
+    fn = ctypes.CDLL(str(out / "libk2_first.so")).tr_bm25_topk_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 3)
+    return fn
+
+
+def first_fused_topk(fn, starts, lens, idf, post_doc, post_impact,
+                     n_valid: int, k: int, p_max: int, cbits: int = 0):
+    """bm25_topk_fused's arguments (contiguous CUDA tensors, T * p_max <=
+    16384) through K2''s first body; returns (out_v, out_i)."""
+    b, t = starts.shape
+    out_v = torch.empty((b, k), dtype=torch.float32, device=starts.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=starts.device)
+    err = fn(*(x.data_ptr() for x in (starts, lens, idf, post_doc,
+                                      post_impact)),
+             post_doc.shape[0], int(n_valid), b, t, p_max, cbits, k,
+             out_v.data_ptr(), out_i.data_ptr(), cuda_stream(starts.device))
+    assert err == 0, f"K2''s first body: CUDA error {err}"
+    return out_v, out_i
+
+
 def first_topk(fn, doc, con, k: int, p: int, t: int, cbits: int):
     """One class's flipped (B, W) candidate rows through the first body;
     returns (out_v, out_i)."""

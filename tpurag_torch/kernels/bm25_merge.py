@@ -34,12 +34,18 @@ kernels on them through a one-class table. K3's t == 1 rows come back as
 ``bm25_topk_fused`` (K2') keeps the TPU kernel's form: the bitonic
 network of T gathered CSR windows (odd terms flipped), the T-window sum
 and a top-k (csrc/bm25_merge.cu), the gather done by the kernel itself so
-the candidate rows never reach device memory.
+the candidate rows never reach device memory. The kernel runs the
+network on a row's live lanes only: pad lanes hold the row's largest
+value and a lane moves only on a strict compare, so pads never move and
+a live lane facing one ends on the comparator's min side, which gives
+the full network's row bit for bit (rows whose windows fill more than
+half the lanes take the full network).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -673,6 +679,16 @@ def bm25_topk_fused_ref(starts, lens, idf, post_doc, post_impact,
     return _bitonic_topk_ref(doc, con, k, p_max, t, cbits)
 
 
+@functools.lru_cache(maxsize=None)
+def _fused_entry():
+    """K2''s C entry point, its argument types set once."""
+    fn = load_kernels().tr_bm25_topk_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 3)
+    return fn
+
+
 def bm25_topk_fused(starts: torch.Tensor, lens: torch.Tensor,
                     idf: torch.Tensor, post_doc: torch.Tensor,
                     post_impact: torch.Tensor, n_valid: int, k: int,
@@ -711,8 +727,9 @@ def bm25_topk_fused(starts: torch.Tensor, lens: torch.Tensor,
     if nnz < p_max or nnz >= 2**31:
         raise ValueError(f"bm25_topk_fused: {nnz} postings; need p_max="
                          f"{p_max} <= nnz < 2^31 (the index pads by p_max)")
-    if k < 1 or not 0 <= cbits <= 30:
-        raise ValueError(f"bm25_topk_fused: bad k={k} or cbits={cbits}")
+    if k < 1 or not 0 <= cbits <= 30 or int(n_valid) > _BIG:
+        raise ValueError(f"bm25_topk_fused: bad k={k}, cbits={cbits} or "
+                         f"n_valid={n_valid} (at most 2^30)")
     if not merge_ok(t * p_max):  # XLA-level code in JAX too: no kernel
         return bm25_topk_segsum(starts, lens, idf, post_doc, post_impact,
                                 n_valid, k=k, p_max=p_max)
@@ -722,12 +739,9 @@ def bm25_topk_fused(starts: torch.Tensor, lens: torch.Tensor,
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_v, out_i
-    fn = load_kernels().tr_bm25_topk_fused
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 3)
-    err = fn(*(x.data_ptr() for x in tables), nnz, int(n_valid), b, t, p_max,
-             cbits, k, out_v.data_ptr(), out_i.data_ptr(), cuda_stream(dev))
+    err = _fused_entry()(*(x.data_ptr() for x in tables), nnz, int(n_valid),
+                         b, t, p_max, cbits, k, out_v.data_ptr(),
+                         out_i.data_ptr(), cuda_stream(dev))
     check_launch(err, "bm25_topk_fused")
     launch_counts["bm25_topk_fused"] += 1
     return out_v, out_i

@@ -1,6 +1,7 @@
 # Ported from tpurag/kernels/quant.py (dense_topk_xla_q8 -> dense_scan_q8_ref,
 # dense_topk_pallas_q8 -> csrc/dense_topk_q8_sm90.cu and the int8 form of
-# csrc/dense_topk.cu, gather_scores_pallas -> csrc/gather_scores.cu).
+# csrc/dense_topk.cu, gather_scores_pallas and rescore_topk ->
+# csrc/gather_scores.cu).
 """int8-quantized dense scan with an exact rescore.
 
 - ``quantize_rows``: per-row symmetric max-abs int8 codes plus one fp32
@@ -21,8 +22,12 @@
   its M candidate rows of the storage-dtype corpus; ``gather_scores_ref``
   is the plain version (a gather, then an fp32 einsum).
 - ``rescore_topk`` re-ranks candidate ids by their exact dots (duplicates
-  dropped, ties to the smaller id); ``dense_topk_q8`` chains the int8
-  scan at an overfetched m = 2k with the rescore.
+  dropped, ties to the smaller id): on the card one launch of K8's
+  rescore (the dots, the duplicate marking and the top-k in one block a
+  query); ``rescore_topk_ref`` is its plain version (the dots by
+  ``gather_scores_ref``, a stable id sort, a stable score sort).
+  ``dense_topk_q8`` chains the int8 scan at an overfetched m = 2k with
+  the rescore.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.
@@ -31,6 +36,7 @@ raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -49,6 +55,9 @@ EXACT_FP32_DIM = 1040
 Q8_SMALL_TILE = 32
 Q8_TILE = 128
 Q8_RESIDENT_MAX_D = 4096
+# K8's rescore keeps a query's candidates in one block's shared memory,
+# 12 bytes each (csrc/gather_scores.cu: rescore_topk_kernel).
+RESCORE_MAX_M = 16384
 
 
 def quantize_rows(emb: torch.Tensor):
@@ -198,57 +207,73 @@ def gather_scores_ref(queries, emb, cand_ids):
     return torch.einsum("bd,bmd->bm", queries.float(), rows)
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """K8's C entry points, their argument types set once."""
+    fn = getattr(load_kernels(), name)
+    fn.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = {
+        "tr_gather_scores": [ptr, ptr, i32, ptr] + [i32] * 4 + [ptr, ptr],
+        "tr_rescore_topk": [ptr, ptr, i32, ptr] + [i32] * 5 + [ptr] * 3,
+    }[name]
+    return fn
+
+
+def _check_rescore_inputs(name, queries, emb, cand_ids):
+    """K8's wrappers' checks on CUDA tensors (raise on what the kernel does
+    not take)."""
+    if emb.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {emb.device}")
+    if queries.device != emb.device or cand_ids.device != emb.device:
+        raise ValueError(f"{name}: inputs on different devices")
+    if emb.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: corpus dtype {emb.dtype} not supported by "
+                        "the kernel (bfloat16 or float32)")
+    if queries.dtype != torch.float32 or cand_ids.dtype != torch.int32:
+        raise TypeError(f"{name}: queries float32, ids int32")
+    if (queries.dim() != 2 or emb.dim() != 2 or cand_ids.dim() != 2
+            or queries.shape[1] != emb.shape[1]
+            or cand_ids.shape[0] != queries.shape[0]):
+        raise ValueError(f"{name}: expected (B, D), (N, D), (B, M)")
+    if not (queries.is_contiguous() and emb.is_contiguous()
+            and cand_ids.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def gather_scores(queries, emb, cand_ids):
     """(B, M) fp32 dot of each (B, D) fp32 query with its candidate rows
     of the (N, D) storage-dtype corpus; cand_ids (B, M) int32, ids < 0
     score garbage (mask downstream). CPU tensors take the plain version;
-    CUDA tensors launch K8 (csrc/gather_scores.cu) or raise."""
+    CUDA tensors launch K8's dots (csrc/gather_scores.cu) or raise."""
     if emb.device.type == "cpu":
         return gather_scores_ref(queries, emb, cand_ids)
-    if emb.device.type != "cuda":
-        raise ValueError(f"gather_scores: unsupported device {emb.device}")
-    if queries.device != emb.device or cand_ids.device != emb.device:
-        raise ValueError("gather_scores: inputs on different devices")
-    if emb.dtype not in DTYPE_CODE:
-        raise TypeError(f"gather_scores: corpus dtype {emb.dtype} not "
-                        "supported by the kernel (bfloat16 or float32)")
-    if queries.dtype != torch.float32 or cand_ids.dtype != torch.int32:
-        raise TypeError("gather_scores: queries float32, ids int32")
-    if (queries.dim() != 2 or emb.dim() != 2 or cand_ids.dim() != 2
-            or queries.shape[1] != emb.shape[1]
-            or cand_ids.shape[0] != queries.shape[0]):
-        raise ValueError("gather_scores: expected (B, D), (N, D), (B, M)")
-    if not (queries.is_contiguous() and emb.is_contiguous()
-            and cand_ids.is_contiguous()):
-        raise ValueError("gather_scores: inputs must be contiguous")
+    _check_rescore_inputs("gather_scores", queries, emb, cand_ids)
     b, d = queries.shape
     m = cand_ids.shape[1]
     out = torch.empty((b, m), dtype=torch.float32, device=emb.device)
     if b * m == 0:
         return out
-    fn = load_kernels().tr_gather_scores
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    err = fn(queries.data_ptr(), emb.data_ptr(), DTYPE_CODE[emb.dtype],
-             cand_ids.data_ptr(), b, m, emb.shape[0], d, out.data_ptr(),
-             cuda_stream(emb.device))
+    err = _entry("tr_gather_scores")(
+        queries.data_ptr(), emb.data_ptr(), DTYPE_CODE[emb.dtype],
+        cand_ids.data_ptr(), b, m, emb.shape[0], d, out.data_ptr(),
+        cuda_stream(emb.device))
     check_launch(err, "gather_scores")
     launch_counts["gather_scores"] += 1
     return out
 
 
-def rescore_topk(queries, emb, cand_ids, k: int):
-    """Exact rescore of candidate ids against the full-precision corpus.
+def rescore_topk_ref(queries, emb, cand_ids, k: int):
+    """Plain version of the rescore: the exact dots, ids sorted stably
+    first, so a duplicate candidate keeps its first lane and ties go to the
+    smaller id; -1 ids and duplicates are no candidate. Returns (B, k) fp32
+    / int32, empties (NEG_INF, -1)."""
+    return _top_unique(gather_scores_ref(queries, emb, cand_ids), cand_ids, k)
 
-    queries (B, D) fp32 (normalized), emb (N, D) storage dtype, cand_ids
-    (B, M) int32 with -1 = no candidate. Re-ranks by the exact dot: ids
-    sorted stably first, so a duplicate candidate keeps its first lane
-    and ties go to the smaller id. Returns (B, k) fp32 / int32, empties
-    (NEG_INF, -1)."""
-    s = gather_scores(queries.float().contiguous(), emb,
-                      cand_ids.contiguous())
+
+def _top_unique(s, cand_ids, k: int):
+    """The rescore after the dots s (B, M): top-k of the unique live
+    candidates, as ``rescore_topk_ref`` describes."""
     valid = cand_ids >= 0
     s = torch.where(valid, s, NEG_INF)
     order = torch.argsort(torch.where(valid, cand_ids, _BIG), dim=1,
@@ -266,6 +291,40 @@ def rescore_topk(queries, emb, cand_ids, k: int):
     vals = vals[:, :k].contiguous()
     ids = torch.gather(ci, 1, pos[:, :k])
     return vals, torch.where(vals <= NEG_INF / 2, -1, ids)
+
+
+def rescore_topk(queries, emb, cand_ids, k: int):
+    """Exact rescore of candidate ids against the full-precision corpus.
+
+    queries (B, D) fp32 (normalized), emb (N, D) storage dtype, cand_ids
+    (B, M) int32 with -1 = no candidate. Re-ranks by the exact dot, each
+    id once, ties to the smaller id. Returns (B, k) fp32 / int32, empties
+    (NEG_INF, -1). CPU tensors take ``rescore_topk_ref``; CUDA tensors
+    launch K8's rescore (csrc/gather_scores.cu), one launch for the dots,
+    the duplicate marking and the top-k, or raise (M up to
+    RESCORE_MAX_M)."""
+    if emb.device.type == "cpu":
+        return rescore_topk_ref(queries, emb, cand_ids, k)
+    queries, cand_ids = queries.float().contiguous(), cand_ids.contiguous()
+    _check_rescore_inputs("rescore_topk", queries, emb, cand_ids)
+    b, d = queries.shape
+    m = cand_ids.shape[1]
+    if k < 1 or m > RESCORE_MAX_M:
+        raise ValueError(f"rescore_topk: k={k} or M={m} candidates outside "
+                         f"the kernel's range (k >= 1, M <= {RESCORE_MAX_M})")
+    out_v = torch.empty((b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=emb.device)
+    if b == 0:
+        return out_v, out_i
+    if m == 0:
+        return out_v.fill_(NEG_INF), out_i.fill_(-1)
+    err = _entry("tr_rescore_topk")(
+        queries.data_ptr(), emb.data_ptr(), DTYPE_CODE[emb.dtype],
+        cand_ids.data_ptr(), b, m, emb.shape[0], d, k, out_v.data_ptr(),
+        out_i.data_ptr(), cuda_stream(emb.device))
+    check_launch(err, "rescore_topk")
+    launch_counts["rescore_topk"] += 1
+    return out_v, out_i
 
 
 def dense_topk_q8(queries, emb_i8, e_scale, n_valid: int, k: int, *,
