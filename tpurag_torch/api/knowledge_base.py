@@ -15,6 +15,7 @@ import dataclasses
 import json
 import pathlib
 import threading
+import time
 import traceback
 from typing import Callable, Optional, Sequence
 
@@ -34,6 +35,7 @@ from tpurag_torch.ingest.tokenizer import tokenize_query
 from tpurag_torch.kernels.dense import dense_topk
 from tpurag_torch.kernels.runtime import NEG_INF
 from tpurag_torch.kernels.topk import merge_topk
+from tpurag_torch.utils import tracing
 from tpurag_torch.utils.locks import RWLock
 
 Embedder = Callable[[list[str]], np.ndarray]
@@ -106,7 +108,7 @@ class KnowledgeBase:
         reference prepends, so doc names are keyword-searchable."""
         if not chunks:
             return []
-        with self._mutex.write():
+        with self._mutex.write(), tracing.timed("ingest_ns", "ingest_calls"):
             texts = [c.display_text() for c in chunks]
             if vectors is None:
                 vectors = self.embedder(texts)
@@ -153,8 +155,10 @@ class KnowledgeBase:
                      vectors=None) -> list[SearchResponse]:
         """vectors: optional (B, dim) pre-computed query embeddings; skips
         the embedder (texts still drive the keyword leg and highlights)."""
-        return self.search_batch_dispatch(queries, top_k=top_k, mode=mode,
-                                          preset=preset, vectors=vectors)()
+        with tracing.span("search_batch", batch=len(queries), mode=mode):
+            return self.search_batch_dispatch(queries, top_k=top_k,
+                                              mode=mode, preset=preset,
+                                              vectors=vectors)()
 
     def search_batch_dispatch(self, queries: list[str],
                               top_k: int | None = None,
@@ -168,14 +172,24 @@ class KnowledgeBase:
         after this batch's kernels; finalize re-takes the read lock for
         the chunk-store assembly (deleted chunks drop out)."""
         p = self._preset(preset, top_k)
-        with self._mutex.read():
+        with self._mutex.read(), tracing.span("dispatch") as sp:
             triple = self._dispatch_locked(queries, p, mode, vectors)
+        call_id = sp.call_id if sp is not None else None
 
         def finalize() -> list[SearchResponse]:
-            scores, ids, bits = (x.cpu().numpy() for x in triple)
-            with self._mutex.read():
-                return [self._assemble(q, scores[b], ids[b], bits[b])
-                        for b, q in enumerate(queries)]
+            with tracing.span("finalize", call_id):
+                with tracing.span("fetch"):
+                    scores, ids, bits = (x.cpu().numpy() for x in triple)
+                with self._mutex.read(), tracing.span("assemble") as asm:
+                    # [highlights, their ns], counted while profiled
+                    hl = [0, 0] if asm is not None else None
+                    out = [self._assemble(q, scores[b], ids[b], bits[b], hl)
+                           for b, q in enumerate(queries)]
+                    if asm is not None:
+                        asm.attrs.update(
+                            results=sum(len(r.results) for r in out),
+                            highlights=hl[0], highlight_ns=hl[1])
+                return out
 
         return finalize
 
@@ -209,6 +223,7 @@ class KnowledgeBase:
                                            as_device=True)
         return scores, ids, torch.where(ids >= 0, 2, 0)
 
+    @tracing.spanned("dense")
     def _ivf_leg(self, qv, k: int):
         """Dense leg over the IVF partition, k candidates: the probe-scan
         plus an exact K1 scan of the rows added after the build (the
@@ -231,7 +246,10 @@ class KnowledgeBase:
             t_i = torch.nn.functional.pad(t_i, (0, k - kk), value=-1)
         return merge_topk(s, i, t_s, t_i, k)
 
-    def _assemble(self, query: str, scores, ids, bits) -> SearchResponse:
+    def _assemble(self, query: str, scores, ids, bits,
+                  hl: list | None = None) -> SearchResponse:
+        """One query's response. hl: [count, ns] that each highlight
+        adds to, or None."""
         qtoks = tokenize_query(query)
         results = []
         for s, i, bt in zip(scores, ids, bits):
@@ -242,11 +260,18 @@ class KnowledgeBase:
             if c.metadata.get("deleted"):
                 continue
             found_in = decode_bits(int(bt))
+            marked = ""
+            if "keyword" in found_in:
+                if hl is None:
+                    marked = highlight(c.text, qtoks)
+                else:
+                    t0 = time.perf_counter_ns()
+                    marked = highlight(c.text, qtoks)
+                    hl[0] += 1
+                    hl[1] += time.perf_counter_ns() - t0
             results.append(SearchResult(
                 chunk_id=i, score=float(s), text=c.text, doc_name=c.doc_name,
-                source=c.source, found_in=found_in,
-                highlighted=(highlight(c.text, qtoks)
-                             if "keyword" in found_in else ""),
+                source=c.source, found_in=found_in, highlighted=marked,
                 metadata=c.metadata,
             ))
         stats = {"total": len(results), "by_source": {}}

@@ -128,24 +128,5 @@ class Relation:
     source_chunk_ids: list[int] = dataclasses.field(default_factory=list)
 
 
-@dataclasses.dataclass
-class QueryTrace:
-    """Per-query execution trace.
-
-    TPU-side analogue of the reference's ExecutionTrace
-    (src/lib/llm/agent.ts:36-51): question -> intent -> retrieval ->
-    tool calls -> answer, plus wall-clock per phase."""
-
-    question: str = ""
-    intent: str = ""
-    phases: dict[str, float] = dataclasses.field(default_factory=dict)
-    tool_calls: list[dict] = dataclasses.field(default_factory=list)
-    retrieved: list[SearchResult] = dataclasses.field(default_factory=list)
-    answer: str = ""
-
-    def record(self, phase: str, seconds: float) -> None:
-        self.phases[phase] = self.phases.get(phase, 0.0) + seconds
-
-
 Metadata = dict[str, Any]
 OptionalFloat = Optional[float]

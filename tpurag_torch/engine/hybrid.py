@@ -23,6 +23,7 @@ from tpurag_torch.index.dense import DenseIndex
 from tpurag_torch.index.inverted import InvertedIndex
 from tpurag_torch.kernels.fusion import rrf_fuse
 from tpurag_torch.kernels.runtime import NEG_INF
+from tpurag_torch.utils import tracing
 
 SOURCE_BITS = ("vector", "keyword")
 
@@ -52,12 +53,21 @@ def hybrid_search(
     (NEG_INF, -1, 0)."""
     v_scores, v_ids = (dense_search or dense.search)(query_vecs,
                                                      preset.vector_top_k)
-    v_scores, v_ids = apply_min_score(v_scores, v_ids, preset.min_vector_score)
-
-    if inverted is not None and len(inverted) > 0:
+    keyword = inverted is not None and len(inverted) > 0
+    if keyword:
         k_scores, k_ids = inverted.search(query_texts, preset.keyword_top_k,
                                           as_device=True)
-        if (preset.min_keyword_coverage > 0.0
+
+    # Everything past the two legs is one span: the floor, the gate, RRF.
+    with tracing.span("fuse"):
+        v_scores, v_ids = apply_min_score(v_scores, v_ids,
+                                          preset.min_vector_score)
+        if not keyword:
+            # Keyword index unavailable -> vector-only degradation
+            # (reference: hybrid-search.ts:322-330).
+            k_ids = torch.full((v_ids.shape[0], preset.keyword_top_k), -1,
+                               dtype=torch.int32, device=v_ids.device)
+        elif (preset.min_keyword_coverage > 0.0
                 and not inverted.config.rank_compat_scores):
             # Keyword-leg confidence gate (see HybridPreset); rank-compat
             # pseudo-scores carry no match mass, so it gates true BM25 only.
@@ -66,19 +76,14 @@ def hybrid_search(
             best = k_scores.amax(dim=1, keepdim=True)
             confident = best >= preset.min_keyword_coverage * mass[:, None]
             k_ids = torch.where(confident, k_ids, -1)
-    else:
-        # Keyword index unavailable -> vector-only degradation
-        # (reference: hybrid-search.ts:322-330).
-        k_ids = torch.full((v_ids.shape[0], preset.keyword_top_k), -1,
-                           dtype=torch.int32, device=v_ids.device)
 
-    return rrf_fuse(
-        (v_ids, k_ids),
-        weights=(preset.vector_weight, preset.keyword_weight),
-        final_k=preset.final_top_k,
-        rrf_k=preset.rrf_k,
-        both_bonus=preset.both_bonus,
-    )
+        return rrf_fuse(
+            (v_ids, k_ids),
+            weights=(preset.vector_weight, preset.keyword_weight),
+            final_k=preset.final_top_k,
+            rrf_k=preset.rrf_k,
+            both_bonus=preset.both_bonus,
+        )
 
 
 def decode_bits(bits: int, names: tuple[str, ...] = SOURCE_BITS) -> tuple[str, ...]:

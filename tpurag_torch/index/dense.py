@@ -31,6 +31,7 @@ import torch
 from tpurag_torch.kernels.dense import dense_topk
 from tpurag_torch.kernels.quant import dense_topk_q8, quantize_rows
 from tpurag_torch.kernels.runtime import NEG_INF, round_up
+from tpurag_torch.utils import tracing
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _NAMES = {v: k for k, v in _DTYPES.items()}
@@ -157,6 +158,7 @@ class DenseIndex:
 
     # -- query -------------------------------------------------------------
 
+    @tracing.spanned("dense")
     def search(self, queries, k: int):
         """Top-k cosine. queries: (B, D) raw (normalized here).
 

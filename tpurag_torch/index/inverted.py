@@ -59,6 +59,7 @@ from tpurag_torch.kernels.bm25_merge import (merge_ok,
                                              slot_rows)
 from tpurag_torch.kernels.runtime import NEG_INF, round_up
 from tpurag_torch.kernels.topk import merge_topk
+from tpurag_torch.utils import tracing
 
 _BIG = 2**30
 
@@ -199,8 +200,9 @@ class InvertedIndex:
             self._tail = None  # lazily rebuilt (O(tail_nnz))
 
     def add_batch(self, ids, texts) -> None:
-        for i, t in zip(ids, texts):
-            self.add(int(i), t)
+        with tracing.timed("ingest_keyword_ns"):
+            for i, t in zip(ids, texts):
+                self.add(int(i), t)
 
     def delete_doc(self, doc_id: int) -> None:
         """Tombstone one document. Search overfetches past dead ids until
@@ -311,6 +313,7 @@ class InvertedIndex:
                        term_len=term_len,
                        device=self.device, nnz=nnz)
 
+    @tracing.timed("compact_ns", "compactions")
     def compact(self) -> None:
         """Full rebuild: drop dead postings, absorb the tail, refresh
         BM25 global stats."""
@@ -377,8 +380,9 @@ class InvertedIndex:
         Returns (scores, ids) as (B, k) float32/int32 numpy arrays;
         empty slots are (NEG_INF, -1). as_device=True returns tensors on
         the index's device (for callers that fuse further, e.g. RRF)."""
-        bqueries = [tokenize_query(q) for q in queries]
-        return self.search_tokens(bqueries, k, as_device=as_device)
+        with tracing.span("keyword"):
+            bqueries = [tokenize_query(q) for q in queries]
+            return self.search_tokens(bqueries, k, as_device=as_device)
 
     def _score(self, rows: list[list[int]], kk: int, layout: _Layout):
         """Score one segment: width-class the queries against this
@@ -445,6 +449,7 @@ class InvertedIndex:
                 np.where(ok, layout.term_row[safe] + 1, 0).astype(np.int32),
                 np.where(ok, layout.term_len[safe], 0).astype(np.int32), idf)
 
+    @tracing.spanned("keyword.classed")
     def _score_classed(self, rows: list[list[int]], kk: int,
                        layout: _Layout, scores, ids, members_map):
         """The classed path for queries without wide terms: every class in
@@ -496,6 +501,7 @@ class InvertedIndex:
             ids[sel, :i.shape[1]] = i
         return scores, ids
 
+    @tracing.spanned("keyword.wide")
     def _score_wide(self, narrow_rows: list[list[int]],
                     wide_rows: list[list[int]], kk: int, layout: _Layout):
         """Queries with wide terms. Narrow terms give full doc-sorted
@@ -547,7 +553,8 @@ class InvertedIndex:
         bsz = len(token_lists)
         with self._build_lock:  # single-flight the lazy compaction
             if self._needs_compact():
-                self.compact()
+                with tracing.span("keyword.compact"):
+                    self.compact()
             main, tail_nnz = self._main, self._tail_nnz
         n = len(self.doc_len)
         if n == 0 or self.n_docs == 0:
