@@ -27,7 +27,8 @@ from tpurag_torch.core.config import EngineConfig, HybridPreset, PRESETS
 from tpurag_torch.core.types import Chunk, SearchResponse, SearchResult
 from tpurag_torch.engine.hybrid import decode_bits, hybrid_search
 from tpurag_torch.index.dense import DenseIndex, l2_normalize, not_ported
-from tpurag_torch.index.inverted import InvertedIndex, highlight
+from tpurag_torch.index.highlighter import highlight_batch
+from tpurag_torch.index.inverted import InvertedIndex
 from tpurag_torch.index.ivf import IVFIndex
 from tpurag_torch.ingest.chunker import chunk_text
 from tpurag_torch.ingest.embedder import HashEmbedder
@@ -181,15 +182,7 @@ class KnowledgeBase:
                 with tracing.span("fetch"):
                     scores, ids, bits = (x.cpu().numpy() for x in triple)
                 with self._mutex.read(), tracing.span("assemble") as asm:
-                    # [highlights, their ns], counted while profiled
-                    hl = [0, 0] if asm is not None else None
-                    out = [self._assemble(q, scores[b], ids[b], bits[b], hl)
-                           for b, q in enumerate(queries)]
-                    if asm is not None:
-                        asm.attrs.update(
-                            results=sum(len(r.results) for r in out),
-                            highlights=hl[0], highlight_ns=hl[1])
-                return out
+                    return self._assemble(queries, scores, ids, bits, asm)
 
         return finalize
 
@@ -246,39 +239,49 @@ class KnowledgeBase:
             t_i = torch.nn.functional.pad(t_i, (0, k - kk), value=-1)
         return merge_topk(s, i, t_s, t_i, k)
 
-    def _assemble(self, query: str, scores, ids, bits,
-                  hl: list | None = None) -> SearchResponse:
-        """One query's response. hl: [count, ns] that each highlight
-        adds to, or None."""
-        qtoks = tokenize_query(query)
-        results = []
-        for s, i, bt in zip(scores, ids, bits):
-            i = int(i)
-            if i < 0 or s <= NEG_INF / 2:
-                continue
-            c = self.chunks[i]
-            if c.metadata.get("deleted"):
-                continue
-            found_in = decode_bits(int(bt))
-            marked = ""
-            if "keyword" in found_in:
-                if hl is None:
-                    marked = highlight(c.text, qtoks)
-                else:
-                    t0 = time.perf_counter_ns()
-                    marked = highlight(c.text, qtoks)
-                    hl[0] += 1
-                    hl[1] += time.perf_counter_ns() - t0
-            results.append(SearchResult(
-                chunk_id=i, score=float(s), text=c.text, doc_name=c.doc_name,
-                source=c.source, found_in=found_in, highlighted=marked,
-                metadata=c.metadata,
-            ))
-        stats = {"total": len(results), "by_source": {}}
-        for r in results:
-            for src in (r.found_in or (r.source,)):
-                stats["by_source"][src] = stats["by_source"].get(src, 0) + 1
-        return SearchResponse(results=results, query=query, stats=stats)
+    def _assemble(self, queries: list[str], scores, ids, bits,
+                  asm=None) -> list[SearchResponse]:
+        """Every query's response; the keyword-found results' highlights
+        in one batched call (index/highlighter.highlight_batch). asm: the
+        profiled `assemble` span to count into, or None."""
+        out, marked, texts, which, qtoks = [], [], [], [], []
+        for b, query in enumerate(queries):
+            qtoks.append(tokenize_query(query))
+            results = []
+            for s, i, bt in zip(scores[b], ids[b], bits[b]):
+                i = int(i)
+                if i < 0 or s <= NEG_INF / 2:
+                    continue
+                c = self.chunks[i]
+                if c.metadata.get("deleted"):
+                    continue
+                found_in = decode_bits(int(bt))
+                r = SearchResult(
+                    chunk_id=i, score=float(s), text=c.text,
+                    doc_name=c.doc_name, source=c.source, found_in=found_in,
+                    metadata=c.metadata)
+                if "keyword" in found_in:
+                    marked.append(r)
+                    texts.append(c.text)
+                    which.append(b)
+                results.append(r)
+            stats = {"total": len(results), "by_source": {}}
+            for r in results:
+                for src in (r.found_in or (r.source,)):
+                    stats["by_source"][src] = stats["by_source"].get(
+                        src, 0) + 1
+            out.append(SearchResponse(results=results, query=query,
+                                      stats=stats))
+        t0 = time.perf_counter_ns()
+        strings, fallbacks = highlight_batch(texts, qtoks, which)
+        for r, h in zip(marked, strings):
+            r.highlighted = h
+        if asm is not None:
+            asm.attrs.update(
+                results=sum(len(r.results) for r in out),
+                highlights=len(texts), highlight_fallbacks=fallbacks,
+                highlight_ns=time.perf_counter_ns() - t0)
+        return out
 
     def build_ivf(self, seed: int = 0) -> IVFIndex:
         """Snapshot the dense corpus into an IVF partition for modes

@@ -1,5 +1,6 @@
-# Ported from tpurag/kernels/runtime.py; the CUDA build/load helper is new.
-"""Kernel runtime helpers: tiling math and the CUDA kernel library.
+# Ported from tpurag/kernels/runtime.py; the build/load helpers are new.
+"""Kernel runtime helpers: tiling math, the CUDA kernel library and the
+host C++ library.
 
 The hand-written kernels live in ``tpurag_torch/csrc`` as CUDA C++ with a
 plain C interface. ``load_kernels()`` compiles them with ``nvcc`` for
@@ -9,6 +10,11 @@ with ctypes. The library lands in ``tpurag_torch/_build`` under a name
 keyed on a hash of the sources and flags, so a source edit rebuilds and
 an unchanged tree reuses the build. Nothing here runs at import time:
 the CPU-only test box imports every module without nvcc.
+
+``load_host_library()`` does the same for ``tpurag_torch/csrc/host/*.cc``,
+plain C++17 with a C interface and no CUDA, built by the system's C++
+compiler on any machine (the CPU test box and the card's host alike), or
+None where there is none: its callers keep their Python versions.
 """
 
 from __future__ import annotations
@@ -30,10 +36,15 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_CSRC_DIR = CSRC_DIR / "host"
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
 
 _lib = None
 _lib_lock = threading.Lock()
 build_info: dict = {}  # path, seconds (0.0 when reused), ptxas log
+_host_lib = None  # the loaded library, or False once a build failed
+_host_lock = threading.Lock()
+host_build_info: dict = {}  # path, seconds, or error
 # Launches by wrapper name: each wrapper adds one where it launches its
 # kernel, and nowhere else. Keyed by name, so a stand-in swapped over a
 # wrapper (a call recorder) leaves the count where it is.
@@ -126,6 +137,52 @@ def _build(so: pathlib.Path, log: pathlib.Path) -> None:
         os.replace(tmp, so)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def load_host_library() -> ctypes.CDLL | None:
+    """Build (once per source hash) and load the host library, or None
+    when it cannot be built or loaded (the reason: host_build_info). It
+    holds the host's native paths: the batched highlighter
+    (``csrc/host/highlight.cc``) and, later, the native tokenizer."""
+    global _host_lib
+    with _host_lock:
+        if _host_lib is None:
+            _host_lib = _load_host_library() or False
+        return _host_lib or None
+
+
+def _load_host_library() -> ctypes.CDLL | None:
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        host_build_info.update(error="no C++ compiler")
+        return None
+    srcs = sorted(HOST_CSRC_DIR.glob("*.cc"))
+    digest = hashlib.sha256(" ".join((cxx, *CXX_FLAGS)).encode())
+    for src in srcs:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libtpurag_host_{digest.hexdigest()[:16]}.so"
+    seconds = 0.0
+    try:
+        if not so.exists():
+            t0 = time.perf_counter()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".tmp{os.getpid()}")
+            done = subprocess.run(
+                [cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                capture_output=True, text=True)
+            if done.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                host_build_info.update(error=done.stderr[-4000:])
+                return None
+            os.replace(tmp, so)
+            seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+    except OSError as e:
+        host_build_info.update(error=str(e))
+        return None
+    host_build_info.update(path=str(so), seconds=seconds)
+    return lib
 
 
 def check_launch(err: int, name: str) -> None:

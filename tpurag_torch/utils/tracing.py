@@ -40,8 +40,10 @@ The spans of one search, from the facade down (``KnowledgeBase``):
                             bits): the host waits on the device here
   ``assemble``              every query's response: chunk lookups and
                             highlighting; attrs ``results``,
-                            ``highlights`` and ``highlight_ns`` (the
-                            highlighter's share of it)
+                            ``highlights``, ``highlight_fallbacks`` (the
+                            highlights that took the Python version) and
+                            ``highlight_ns`` (the batched highlighter's
+                            share of it: encode, native call, decode)
 ``gc``                      a collection of the cyclic collector, under
                             the span it interrupted; attr ``generation``
 ==========================  ===============================================
