@@ -1319,7 +1319,7 @@ def drive_slice(device: str, kernels=()) -> dict:
     sync()
     ingest_s = time.perf_counter() - t0
     assert len(kb) == N_DOCS and kb.dense.embeddings.dtype == torch.bfloat16
-    widest = max(len(p) for p in kb.inverted._postings_doc)
+    widest = max(map(kb.inverted._df, range(len(kb.inverted.vocab))))
     assert widest <= kb.config.bm25.wide_term_width, widest
     log(f"[kb] ingest {N_DOCS} x {DIM} bf16 + {n_post} postings: "
         f"{ingest_s:.2f}s; widest term df={widest} (narrow route only)")

@@ -1,7 +1,12 @@
 # Ported from tpurag/index/inverted.py (single device).
 """Inverted index (keyword search).
 
-Host side: vocabulary + per-term postings accumulated incrementally.
+Host side: vocabulary + per-term postings accumulated incrementally,
+each term's doc ids and term frequencies in a bytearray of int32 (the
+.npz format's width; the collector neither tracks nor walks them).
+``add_batch`` tokenizes, counts and groups a batch by term in native
+calls (index/postings.py) and appends each term's postings at once;
+``add`` is the plain path, a document at a time.
 
 Device layout (same as the JAX package):
 - postings live in per-width BUCKET MATRICES on the index's device: each
@@ -44,12 +49,14 @@ import json
 import math
 import pathlib
 import re
+import struct
 import threading
 
 import numpy as np
 import torch
 
 from tpurag_torch.core.config import BM25Config
+from tpurag_torch.index import postings
 from tpurag_torch.ingest.tokenizer import tokenize, tokenize_query
 from tpurag_torch.kernels.bm25 import rank_compat, segsum_topk_candidates
 from tpurag_torch.kernels.bm25_join import combine_topk_classes
@@ -62,6 +69,28 @@ from tpurag_torch.kernels.topk import merge_topk
 from tpurag_torch.utils import tracing
 
 _BIG = 2**30
+_INT = struct.Struct("i")  # one doc id or term frequency of a posting
+NATIVE_MIN_DOCS = 8  # smaller batches take add(): the native call's set-up
+
+
+def _ints(buf) -> np.ndarray:
+    """A postings buffer as int32: a view, so the buffer cannot grow
+    while it lives."""
+    return np.frombuffer(buf, np.int32)
+
+
+def _buf(values) -> bytearray:
+    """A postings buffer holding `values` as int32."""
+    return bytearray(np.ascontiguousarray(values, np.int32))
+
+
+def _joined(bufs: list, tids, ranges) -> np.ndarray:
+    """bufs[t]'s postings ranges[t] = (start, end), for t in tids, end
+    to end as one int32 array."""
+    w = _INT.size
+    return np.frombuffer(b"".join(
+        memoryview(bufs[t])[w * ranges[t][0]:w * ranges[t][1]]
+        for t in tids), np.int32)
 
 
 def _next_pow2(x: int) -> int:
@@ -155,8 +184,8 @@ class InvertedIndex:
         self.config = config or BM25Config()
         self.device = torch.device(device)
         self.vocab: dict[str, int] = {}
-        self._postings_doc: list[list[int]] = []   # per-term doc ids
-        self._postings_tf: list[list[int]] = []    # per-term frequencies
+        self._postings_doc: list[bytearray] = []   # per-term doc ids
+        self._postings_tf: list[bytearray] = []    # per-term frequencies
         self.doc_len: list[int] = []               # tokens per doc id
         self.n_docs = 0                            # live docs
         self._total_tokens = 0                     # live token count
@@ -182,13 +211,9 @@ class InvertedIndex:
         for term, c in counts.items():
             tid = self.vocab.get(term)
             if tid is None:
-                tid = len(self.vocab)
-                self.vocab[term] = tid
-                self._postings_doc.append([])
-                self._postings_tf.append([])
-                self._main_count.append(0)
-            self._postings_doc[tid].append(doc_id)
-            self._postings_tf[tid].append(c)
+                tid = self._new_term(term)
+            self._postings_doc[tid] += _INT.pack(doc_id)
+            self._postings_tf[tid] += _INT.pack(c)
             total += c
         while len(self.doc_len) <= doc_id:
             self.doc_len.append(0)
@@ -199,10 +224,60 @@ class InvertedIndex:
             self._tail_nnz += len(counts)
             self._tail = None  # lazily rebuilt (O(tail_nnz))
 
+    def _new_term(self, term: str) -> int:
+        tid = self.vocab[term] = len(self.vocab)
+        self._postings_doc.append(bytearray())
+        self._postings_tf.append(bytearray())
+        self._main_count.append(0)
+        return tid
+
     def add_batch(self, ids, texts) -> None:
+        """Index a batch, as add() one document after another would. From
+        NATIVE_MIN_DOCS documents on, native calls tokenize, count and
+        group the batch by term, and each term's postings are appended
+        at once; smaller batches, batches with a text too long for one
+        native call, and every batch where the host library cannot be
+        built take add()."""
         with tracing.timed("ingest_keyword_ns"):
-            for i, t in zip(ids, texts):
-                self.add(int(i), t)
+            ids = [int(i) for i in ids]
+            texts = list(texts)
+            lib = (postings.library() if len(ids) >= NATIVE_MIN_DOCS
+                   and postings.fits(texts) else None)
+            if lib is None:
+                for i, t in zip(ids, texts):
+                    self.add(i, t)
+                tracing.counters["ingest_python_docs"] += len(ids)
+                return
+            self._add_native(lib, ids, texts)
+            tracing.counters["ingest_native_docs"] += len(ids)
+
+    def _add_native(self, lib, ids: list[int], texts: list[str]) -> None:
+        top = max(ids)
+        if len(self.doc_len) <= top:
+            self.doc_len.extend([0] * (top + 1 - len(self.doc_len)))
+        batch_ids = np.asarray(ids, np.int32)
+        pairs = 0
+        for part in postings.batch_postings(lib, texts):
+            doc = memoryview(batch_ids[part.lo + part.doc]).cast("B")
+            tf = memoryview(part.tf).cast("B")
+            a = 0
+            for term, n in zip(part.terms, part.term_docs.tolist()):
+                tid = self.vocab.get(term)
+                if tid is None:
+                    tid = self._new_term(term)
+                b = a + _INT.size * n
+                self._postings_doc[tid] += doc[a:b]
+                self._postings_tf[tid] += tf[a:b]
+                a = b
+            for i, total in zip(ids[part.lo:part.hi],
+                                part.doc_total.tolist()):
+                self.doc_len[i] = total
+            self._total_tokens += int(part.doc_total.sum())
+            pairs += len(part.doc)
+        self.n_docs += len(ids)
+        if self._main is not None:
+            self._tail_nnz += pairs
+            self._tail = None  # lazily rebuilt (O(tail_nnz))
 
     def delete_doc(self, doc_id: int) -> None:
         """Tombstone one document. Search overfetches past dead ids until
@@ -229,9 +304,13 @@ class InvertedIndex:
         k1, b = self.config.k1, self.config.b
         return np.maximum(k1 * (1.0 - b + b * dl / self._avgdl), 1e-6)
 
+    def _df(self, tid: int) -> int:
+        """Postings of term `tid`, dead ones included."""
+        return len(self._postings_doc[tid]) // _INT.size
+
     def _impacts(self, tid: int, start: int, end: int, dnorm: np.ndarray):
-        docs = np.asarray(self._postings_doc[tid][start:end], np.int64)
-        tfs = np.asarray(self._postings_tf[tid][start:end], np.float32)
+        docs = _ints(self._postings_doc[tid])[start:end].astype(np.int64)
+        tfs = _ints(self._postings_tf[tid])[start:end].astype(np.float32)
         k1 = self.config.k1
         return docs, tfs * (k1 + 1.0) / (tfs + dnorm[docs])
 
@@ -286,14 +365,8 @@ class InvertedIndex:
                 (ranges[t][1] - ranges[t][0] for t in tids), np.int64,
                 len(tids))
             total = int(lens.sum())
-            docs = np.empty(total, np.int64)
-            tfs = np.empty(total, np.float32)
-            pos = 0
-            for tid, ln in zip(tids, lens):
-                s, e = ranges[tid]
-                docs[pos:pos + ln] = self._postings_doc[tid][s:e]
-                tfs[pos:pos + ln] = self._postings_tf[tid][s:e]
-                pos += ln
+            docs = _joined(self._postings_doc, tids, ranges).astype(np.int64)
+            tfs = _joined(self._postings_tf, tids, ranges).astype(np.float32)
             rows = np.repeat(np.arange(1, len(tids) + 1), lens)
             # Rows must be doc-sorted for the bitonic merge; adds are
             # normally monotone: verify, lexsort otherwise.
@@ -318,19 +391,20 @@ class InvertedIndex:
         """Full rebuild: drop dead postings, absorb the tail, refresh
         BM25 global stats."""
         if self._dead:
+            dead = np.zeros(len(self.doc_len), bool)
+            dead[list(self._dead)] = True
             for tid in range(len(self._postings_doc)):
-                docs = self._postings_doc[tid]
-                if not any(d in self._dead for d in docs):
+                docs = _ints(self._postings_doc[tid])
+                keep = ~dead[docs]
+                if keep.all():
                     continue
-                tfs = self._postings_tf[tid]
-                keep = [j for j, d in enumerate(docs)
-                        if d not in self._dead]
-                self._postings_doc[tid] = [docs[j] for j in keep]
-                self._postings_tf[tid] = [tfs[j] for j in keep]
+                self._postings_doc[tid] = _buf(docs[keep])
+                self._postings_tf[tid] = _buf(
+                    _ints(self._postings_tf[tid])[keep])
             for d in self._dead:
                 self.doc_len[d] = 0
             self._dead = set()
-        self._main_count = [len(p) for p in self._postings_doc]
+        self._main_count = [len(p) // _INT.size for p in self._postings_doc]
         self._main = self._build_layout(
             [(0, c) for c in self._main_count])
         self._tail = None
@@ -351,8 +425,7 @@ class InvertedIndex:
     def _tail_layout(self) -> _Layout:
         if self._tail is None:
             self._tail = self._build_layout(
-                [(c, len(p)) for c, p in
-                 zip(self._main_count, self._postings_doc)])
+                [(c, self._df(t)) for t, c in enumerate(self._main_count)])
         return self._tail
 
     # -- query ---------------------------------------------------------------
@@ -369,7 +442,7 @@ class InvertedIndex:
             for tok in tokenize_query(q):
                 tid = self.vocab.get(tok)
                 df = (0 if tid is None
-                      else min(len(self._postings_doc[tid]), df_live))
+                      else min(self._df(tid), df_live))
                 mass += math.log(1.0 + (df_live - df + 0.5) / (df + 0.5))
             out[qi] = mass
         return out
@@ -441,7 +514,7 @@ class InvertedIndex:
         terms = np.unique(tid[ok])
         idf_t = np.array(
             [math.log(1.0 + (df_live - df + 0.5) / (df + 0.5)) for df in
-             (min(len(self._postings_doc[x]), df_live) for x in terms)],
+             (min(self._df(x), df_live) for x in terms)],
             np.float32)
         idf = np.zeros((n, t), np.float32)
         idf[ok] = idf_t[np.searchsorted(terms, tid[ok])]
@@ -568,8 +641,7 @@ class InvertedIndex:
         for toks in token_lists:
             tids = [self.vocab[t] for t in toks if t in self.vocab]
             if self.config.max_df_ratio < 1.0:
-                tids = [t for t in tids
-                        if len(self._postings_doc[t]) <= df_cap]
+                tids = [t for t in tids if self._df(t) <= df_cap]
             rows.append(tids)
 
         # Overfetch past tombstones (dead ids filtered below), rounded
@@ -614,13 +686,10 @@ class InvertedIndex:
         path = pathlib.Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         offsets = np.zeros(len(self._postings_doc) + 1, np.int64)
-        np.cumsum([len(p) for p in self._postings_doc], out=offsets[1:])
-        flat_doc = np.fromiter(
-            (d for p in self._postings_doc for d in p), np.int32,
-            int(offsets[-1]))
-        flat_tf = np.fromiter(
-            (t for p in self._postings_tf for t in p), np.int32,
-            int(offsets[-1]))
+        np.cumsum([len(p) // _INT.size for p in self._postings_doc],
+                  out=offsets[1:])
+        flat_doc = np.frombuffer(b"".join(self._postings_doc), np.int32)
+        flat_tf = np.frombuffer(b"".join(self._postings_tf), np.int32)
         np.savez(
             path,
             vocab=json.dumps(self.vocab, ensure_ascii=False),
@@ -644,12 +713,11 @@ class InvertedIndex:
         idx.vocab = dict(vocab)
         idx.doc_len = [int(x) for x in doc_len]
         idx.n_docs = int(n_docs)
-        offs = np.asarray(post_offsets)
-        fd, ft = np.asarray(post_doc), np.asarray(post_tf)
-        idx._postings_doc = [fd[offs[i]:offs[i + 1]].tolist()
-                             for i in range(len(offs) - 1)]
-        idx._postings_tf = [ft[offs[i]:offs[i + 1]].tolist()
-                            for i in range(len(offs) - 1)]
+        offs = np.asarray(post_offsets).tolist()
+        fd = np.ascontiguousarray(post_doc, np.int32)
+        ft = np.ascontiguousarray(post_tf, np.int32)
+        idx._postings_doc = [_buf(fd[a:b]) for a, b in zip(offs, offs[1:])]
+        idx._postings_tf = [_buf(ft[a:b]) for a, b in zip(offs, offs[1:])]
         idx._total_tokens = int(total_tokens)
         idx._dead = {int(x) for x in dead}
         idx._main_count = [0] * len(idx._postings_doc)
@@ -666,8 +734,8 @@ class InvertedIndex:
             idx.doc_len = [int(x) for x in data["doc_len"]]
             idx.n_docs = int(data["n_docs"])
             p = json.loads(str(data["postings"]))
-            idx._postings_doc = p["doc"]
-            idx._postings_tf = p["tf"]
+            idx._postings_doc = [_buf(x) for x in p["doc"]]
+            idx._postings_tf = [_buf(x) for x in p["tf"]]
             idx._total_tokens = sum(idx.doc_len)
             idx._main_count = [0] * len(idx._postings_doc)
             return idx

@@ -7,8 +7,10 @@ words + numbers, and CJK handled as character bigrams (the standard
 BM25-over-Chinese recipe, matching Meilisearch's Jieba-less fallback
 behavior closely enough for rank parity on mixed corpora).
 
-The JAX package also has a C-accelerated path (tpurag.native); the port
-uses only this pure-Python version, which is the behavioral spec.
+This pure-Python version is the behavioral spec. InvertedIndex.add_batch
+tokenizes batches with the native copy of the JAX package's C++
+tokenizer (index/postings.py, csrc/host/tokenizer.cc), held to this one
+by tests.
 """
 
 from __future__ import annotations

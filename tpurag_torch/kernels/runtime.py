@@ -37,7 +37,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 HOST_CSRC_DIR = CSRC_DIR / "host"
-CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared", "-pthread")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -143,7 +143,8 @@ def load_host_library() -> ctypes.CDLL | None:
     """Build (once per source hash) and load the host library, or None
     when it cannot be built or loaded (the reason: host_build_info). It
     holds the host's native paths: the batched highlighter
-    (``csrc/host/highlight.cc``) and, later, the native tokenizer."""
+    (``csrc/host/highlight.cc``) and the batched keyword tokenizer
+    (``csrc/host/tokenizer.cc``)."""
     global _host_lib
     with _host_lock:
         if _host_lib is None:

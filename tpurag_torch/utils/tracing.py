@@ -60,7 +60,10 @@ Counters
 
 - ``ingest_ns``, ``ingest_calls``: ``KnowledgeBase.add_chunks``;
 - ``ingest_keyword_ns``: ``InvertedIndex.add_batch`` (tokenizing and the
-  postings lists), inside the former;
+  postings), inside the former;
+- ``ingest_native_docs``, ``ingest_python_docs``: the documents
+  ``InvertedIndex.add_batch`` indexed through the native batched call
+  and through ``InvertedIndex.add``, one at a time;
 - ``compact_ns``, ``compactions``: ``InvertedIndex.compact``, the
   keyword index's rebuild onto the device (a KB's first search runs one).
 
