@@ -45,10 +45,12 @@ non-zero before the result line):
      16, 2048) over a 50k vocabulary, ~1.05M postings), answers 4
      search_batch(mode="hybrid") requests of 1024 queries and 3 single
      searches, with the kernels' launch counters reset just before: K2
-     launched once a search; one request's K2 call replayed bit for bit
-     and timed beside its first body; one profiled request (device busy,
-     port kernels, glue); then a save, a reload on the CPU, and 64
-     queries compared there;
+     and the fusion kernel (csrc/fuse_rrf.cu) launched once a search; one
+     request's K2 call replayed bit for bit and timed beside its first
+     body; its fusion call replayed through fuse_legs and fuse_legs_ref,
+     bit for bit, and both timed; one profiled request (device busy, port
+     kernels, glue; one fusion kernel); then a save, a reload on the CPU,
+     and 64 queries compared there;
   6. timings (CUDA events, median of >= 10) of each kernel and its plain
      version, search_batch p50 at b=1024, ingest seconds;
   7. the 1M wide-term slice (bench.py's TPURAG_BENCH_N=1000000 plan:
@@ -58,9 +60,10 @@ non-zero before the result line):
      before, one profiled request (device busy, K3's, K4's and the
      gathers' shares), 64 hard queries' keyword top-8 against a CPU index
      of the same postings; every K1 launch took the TMA + wgmma body, and
-     K2, K3 and K4 launched exactly once per request; K1 (both bodies,
-     within TOL at near ties), K2, K3 and K4 (bit for bit) held to their
-     plain versions and timed on the very inputs one request gave them,
+     K2, K3, K4 and the fusion kernel launched exactly once per request;
+     K1 (both bodies, within TOL at near ties), K2, K3, K4 and the fusion
+     kernel (bit for bit) held to their plain versions and timed on the
+     very inputs one request gave them,
      K2, K3 and K4 beside their first bodies' per-class launches on the
      same rows.
   8. the int8 + IVF slice at the JAX package's 1M-chunk hybrid_ivf point
@@ -110,14 +113,15 @@ non-zero before the result line):
      1M request (512 x 1M), every routed K7 call through the Hopper body.
 
 The second-to-last stdout line is the kernel table as JSON, one row per
-kernel: launches over the 1M phases' requests (K1-K4 phase 7, K5, K6 and
-K8's rescore phase 8; K8's dots alone are on no path since the rescore
+kernel: launches over the 1M phases' requests (K1-K4 and the fusion
+kernel phase 7, K5, K6 and K8's rescore phase 8; K8's dots alone are on no path since the rescore
 became one launch, 0) and over phase 9's eval configs (K2'; K7 is on no
 path, 0), and times, plain times, bounds and library times summed over
 one 1M request's launches (K7: phase 7's request; K2': one hybrid step's
 call; K6 and K8's dots timed in chains of 10 launches, K8's rescore on
 the device in phase 8's profiled hybrid_ivf request, K2' on the device
-in 9f's profile of eval `hybrid`'s chain, the kernel's own time); the
+in 9f's profile of eval `hybrid`'s chain, the fusion kernel on the
+device in phase 7's profiled request, the kernel's own time); the
 last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
@@ -1292,13 +1296,14 @@ def nvidia_smi() -> str:
 def drive_slice(device: str, kernels=()) -> dict:
     """The main path through the public API: ingest the bench corpus into
     KnowledgeBase(dim=1024, device=device), one warm-up search_batch
-    (compaction; its K2 call is recorded), 4 search_batch(hybrid) requests
-    of BATCH queries and 3 single searches (each kernel's launch count
-    reset just before and read just after), check the answers, profile one
-    request on the card, then save, reload on the CPU and compare 64
-    queries there."""
+    (compaction; its K2 and fusion calls are recorded), 4
+    search_batch(hybrid) requests of BATCH queries and 3 single searches
+    (each kernel's launch count reset just before and read just after),
+    check the answers, profile one request on the card, then save, reload
+    on the CPU and compare 64 queries there."""
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.types import Chunk
+    from tpurag_torch.engine import hybrid as hybrid_mod
     from tpurag_torch.index import inverted as inverted_mod
     from tpurag_torch.kernels.runtime import BUILD_DIR, launch_counts
 
@@ -1328,8 +1333,9 @@ def drive_slice(device: str, kernels=()) -> dict:
     for _ in range(5):  # one warm-up (the first search compacts), four timed
         qv, src = query_vectors(rng, emb_rows, BATCH)
         batches.append((zipf_queries(rng, BATCH), qv, src))
-    calls = []
-    with recording(inverted_mod, "merge_segsum_topk_classes", calls):
+    calls, fuse_calls = [], []
+    with recording(inverted_mod, "merge_segsum_topk_classes", calls), \
+            recording(hybrid_mod, "fuse_legs", fuse_calls):
         kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
     sync()
 
@@ -1374,7 +1380,7 @@ def drive_slice(device: str, kernels=()) -> dict:
     shutil.rmtree(save_dir, ignore_errors=True)
     log("[kb] save -> load(device='cpu'): 64 queries give the same top-8")
     return {"launches": launches, "lat_ms": lat, "ingest_s": ingest_s,
-            "calls": calls, "profile": profile}
+            "calls": calls, "fuse_calls": fuse_calls, "profile": profile}
 
 
 def count_names(kernels) -> list:
@@ -1770,6 +1776,7 @@ def drive_wide(device: str, kernels=()) -> dict:
     postings."""
     from tpurag_torch import KnowledgeBase
     from tpurag_torch.core.types import Chunk
+    from tpurag_torch.engine import hybrid as hybrid_mod
     from tpurag_torch.index import dense as dense_mod
     from tpurag_torch.index import inverted as inverted_mod
     from tpurag_torch.index.inverted import InvertedIndex
@@ -1809,7 +1816,7 @@ def drive_wide(device: str, kernels=()) -> dict:
     hard = [sum(map(is_hard, qs)) for qs, _, _ in batches]
     calls = {n: [] for n in ("dense_topk", "merge_segsum_topk_classes",
                              "merge_segsum_full_classes",
-                             "combine_topk_classes")}
+                             "combine_topk_classes", "fuse_legs")}
     t0 = time.perf_counter()
     with recording(dense_mod, "dense_topk", calls["dense_topk"]), \
             recording(inverted_mod, "merge_segsum_topk_classes",
@@ -1817,7 +1824,8 @@ def drive_wide(device: str, kernels=()) -> dict:
             recording(inverted_mod, "merge_segsum_full_classes",
                       calls["merge_segsum_full_classes"]), \
             recording(inverted_mod, "combine_topk_classes",
-                      calls["combine_topk_classes"]):
+                      calls["combine_topk_classes"]), \
+            recording(hybrid_mod, "fuse_legs", calls["fuse_legs"]):
         kb.search_batch(batches[0][0], mode="hybrid", vectors=batches[0][1])
     sync()
     log(f"[wide] warm-up request (compaction included): "
@@ -2260,6 +2268,42 @@ def host_ms(fn, n: int = 20) -> float:
     return out
 
 
+def replay_fuse(calls) -> dict:
+    """The fusion kernel (csrc/fuse_rrf.cu) on the main path's own inputs
+    (one request's fuse_legs calls): one launch a call, held to
+    fuse_legs_ref bit for bit (scores as int32 bit patterns), with the
+    wrapper's whole call and the plain version timed (CUDA events) and a
+    bound from the bytes a call reads and writes."""
+    from tpurag_torch.kernels.fusion import fuse_legs, fuse_legs_ref
+    from tpurag_torch.kernels.runtime import launch_counts
+
+    call_ms = plain_ms = nbytes = ops = 0.0
+    shapes = []
+    for args, kw in calls:
+        before = launch_counts["fuse_legs"]
+        got = fuse_legs(*args, **kw)
+        assert launch_counts["fuse_legs"] == before + 1, "fuse_legs missed"
+        want = fuse_legs_ref(*args, **kw)
+        assert (torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2])), (
+            "the fusion kernel differs from its plain version")
+        _, v_i, _, k_i, mass, preset = args
+        b, kv = v_i.shape
+        kk = 0 if k_i is None else k_i.shape[1]
+        fk = preset.final_top_k
+        # Each lane's (score, id), the mass, each slot's triple.
+        nbytes += b * (8 * (kv + kk) + 4 * (mass is not None) + 12 * fk)
+        ops += b * (kv + kk) ** 2
+        call_ms += cuda_ms(lambda: fuse_legs(*args, **kw))
+        plain_ms += cuda_ms(lambda: fuse_legs_ref(*args, **kw))
+        shapes.append(f"b {b}, k_v {kv}, k_k {kk}, final_k {fk}, gate "
+                      f"{'on' if mass is not None else 'off'}")
+    return {"call_ms": call_ms, "plain_ms": plain_ms, "shapes": shapes,
+            "nbytes": nbytes, "bound": bound_ms(nbytes, ops, FP32_OPS_S)}
+
+
 def replay_rescore(calls) -> dict:
     """K8's rescore (rescore_topk, one launch) on the main path's own
     inputs (the recorded calls of one hybrid_ivf and one hybrid request):
@@ -2396,7 +2440,15 @@ PORT_KERNELS = {"dense_scan_kernel": "K1", "dense_merge_kernel": "K1",
                 "dense_co_resident_q_kernel": "K7",
                 "dense_co_resident_c_kernel": "K7",
                 "gather_scores_kernel": "K8",
-                "rescore_topk_kernel": "K8"}
+                "rescore_topk_kernel": "K8", "fuse_rrf_kernel": "F"}
+
+
+def device_fn(raw: str) -> str:
+    """A profiled device function's own name and template arguments,
+    without its namespace ("(anonymous namespace)::" included), return
+    type and parameter list."""
+    m = re.search(r"(\w+_kernel(?:<[^<>()]*(?:\(bool\)[^<>()]*)*>)?)", raw)
+    return m.group(1).lstrip("_") if m else raw[:48]
 
 
 def port_kernel(name: str):
@@ -2433,11 +2485,7 @@ def device_profile(fn) -> dict:
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ops += 1
-            # A kernel's own name and template arguments, without its
-            # namespace, return type and parameter list.
-            m = re.search(r"(\w+_kernel(?:<[^<>()]*(?:\(bool\)[^<>()]*)*>)?)",
-                          e.name)
-            name = m.group(1).lstrip("_") if m else e.name[:48]
+            name = device_fn(e.name)
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
             if (kern := port_kernel(name)) is not None:
@@ -2528,6 +2576,7 @@ def main() -> int:
                                                  merge_segsum_full,
                                                  merge_segsum_topk)
     from tpurag_torch.kernels.dense import dense_topk, dense_topk_co
+    from tpurag_torch.kernels.fusion import fuse_legs
     from tpurag_torch.kernels.ivf_scan import ivf_probe_topk, ivf_scan
     from tpurag_torch.kernels.quant import (dense_scan_q8, gather_scores,
                                             rescore_topk)
@@ -2680,11 +2729,19 @@ def main() -> int:
         f"({k4w_bound[1]}: {k4w_bytes / 1e6:.1f} MB live) ({card})")
 
     # -- 5. the 100k slice ------------------------------------------------------
-    run = drive_slice("cuda", (dense_topk, merge_segsum_topk))
+    run = drive_slice("cuda", (dense_topk, merge_segsum_topk, fuse_legs))
     for name, n in run["launches"].items():
         assert n > 0, f"{name} was not launched on the main path"
     assert run["launches"]["merge_segsum_topk"] == 7, (
         "K2 must launch exactly once per search (4 batches, 3 singles)")
+    assert run["launches"]["fuse_legs"] == 7, (
+        "the fusion kernel must launch exactly once per hybrid search")
+    fs = replay_fuse(run.pop("fuse_calls"))
+    log(f"[fuse] one 100k request's fusion ({'; '.join(fs['shapes'])}) "
+        f"bit-identical to fuse_legs_ref: the wrapper's whole call "
+        f"{fs['call_ms']:.3f} ms, plain {fs['plain_ms']:.3f} ms, bound "
+        f"{fs['bound'][0]:.5f} ms ({fs['bound'][1]}: "
+        f"{fs['nbytes'] / 1e3:.1f} kB) ({card})")
     k2s = replay_topk(run["calls"], k2_first)
     log(f"[K2] one 100k request's launch ({'; '.join(k2s['shapes'])}) "
         f"bit-identical to the plain version: kernel {k2s['ms']:.3f} ms (the "
@@ -2695,6 +2752,8 @@ def main() -> int:
         f"live lanes) ({card})")
     prof = run["profile"]
     if prof["busy_ms"] > 0:
+        assert prof["port_ops"].get("F") == 1, (
+            f"the profiled 100k request ran {prof['port_ops']} port kernels")
         log(f"[perf] 100k: one profiled request: wall {prof['wall_ms']:.2f} "
             f"ms, device busy {prof['busy_ms']:.3f} ms, idle share "
             f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}, "
@@ -2717,7 +2776,8 @@ def main() -> int:
         f"{run['ingest_s']:.2f}s ({card})")
 
     # -- 7. the 1M wide-term slice ------------------------------------------------
-    kernels = (dense_topk, merge_segsum_topk, merge_segsum_full, combine_topk)
+    kernels = (dense_topk, merge_segsum_topk, merge_segsum_full, combine_topk,
+               fuse_legs)
     wide = drive_wide("cuda", kernels)
     launches = wide["launches"]
     for name, n in launches.items():
@@ -2730,11 +2790,14 @@ def main() -> int:
         "K3 must launch exactly once per 1M request")
     assert launches["merge_segsum_topk"] == 4, (
         "K2 must launch exactly once per 1M request")
+    assert launches["fuse_legs"] == 4, (
+        "the fusion kernel must launch exactly once per 1M request")
     calls = wide["calls"]
     k1 = replay_dense(calls["dense_topk"])
     k2 = replay_topk(calls["merge_segsum_topk_classes"], k2_first)
     k3 = replay_full(calls["merge_segsum_full_classes"], k3_first)
     k4 = replay_combine(calls["combine_topk_classes"], k4_first)
+    kf = replay_fuse(calls["fuse_legs"])
     del calls, wide["calls"]
     err1 = max(err1, k1["err"], k1["first_err"])
     wide_p50 = statistics.median(wide["lat_ms"])
@@ -2767,8 +2830,17 @@ def main() -> int:
         f"{k4['first_ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms, bound "
         f"{k4['bound'][0]:.4f} ms ({k4['bound'][1]}: "
         f"{k4['nbytes'] / 1e6:.1f} MB live) ({card})")
+    log(f"[fuse] one 1M request's fusion ({'; '.join(kf['shapes'])}) "
+        f"bit-identical to fuse_legs_ref: the wrapper's whole call "
+        f"{kf['call_ms']:.3f} ms, plain {kf['plain_ms']:.3f} ms, bound "
+        f"{kf['bound'][0]:.5f} ms ({kf['bound'][1]}: "
+        f"{kf['nbytes'] / 1e3:.1f} kB) ({card})")
     prof = wide["profile"]
+    # The fusion kernel's row takes its device time from this profile.
+    kf["ms"] = prof["port"].get("F") if prof["busy_ms"] > 0 else None
     if prof["busy_ms"] > 0:
+        assert prof["port_ops"].get("F") == 1, (
+            f"the profiled 1M request ran {prof['port_ops']} port kernels")
         log(f"[perf] 1M: one profiled request: wall {prof['wall_ms']:.2f} ms, "
             f"device busy {prof['busy_ms']:.3f} ms, idle share "
             f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}; busiest: "
@@ -3216,6 +3288,13 @@ def main() -> int:
          "ms": k1["co_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
          "library_ms": k1["lib_ms"]},
+        {"name": "fuse_legs", "route": "cuda",
+         "source": "tpurag_torch/csrc/fuse_rrf.cu",
+         "replaces": "tpurag/engine/hybrid.py:64",
+         "launches": launches["fuse_legs"], "max_abs_err": 0.0,
+         "ms": kf["ms"], "plain_ms": kf["plain_ms"],
+         "bound_ms": kf["bound"][0], "bound_by": kf["bound"][1],
+         "library_ms": None},
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -225,11 +225,28 @@ def test_segsum_and_fused_no_hits():
     ("dense_scan_kernel<signed char>", "K5"),
     ("dense_scan_kernel<__nv_bfloat16>", "K1"),
     ("rescore_topk_kernel<__nv_bfloat16>", "K8"),
+    ("fuse_rrf_kernel", "F"),
 ])
 def test_profile_names_map_to_port_kernels(name, kernel):
     """chip_smoke's profile sums device time by port kernel: K2's body is
     topk_rows_kernel, K2''s the templated merge_segsum_kernel<PACKED>."""
     assert chip_smoke.port_kernel(name) == kernel
+
+
+@pytest.mark.parametrize("raw,kernel", [
+    ("(anonymous namespace)::fuse_rrf_kernel(float const*, int const*, int, "
+     "float const*, int const*, int, float const*, float, float, float, "
+     "float, float, float, int, int, int, float*, int*, int*)", "F"),
+    ("void (anonymous namespace)::merge_segsum_kernel<true>(int const*)",
+     "K2'"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::FillFunctor<float>, std::array<char*, 1ul> >(int, "
+     "at::native::FillFunctor<float>, std::array<char*, 1ul>)", None),
+])
+def test_profiled_device_functions_map_to_port_kernels(raw, kernel):
+    """The profiler's full names (namespace, return type, parameters) reach
+    the port kernel's entry; torch's glue maps to none."""
+    assert chip_smoke.port_kernel(chip_smoke.device_fn(raw)) == kernel
 
 
 BIG = 2**30

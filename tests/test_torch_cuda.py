@@ -8,12 +8,14 @@ machine with one (no jax needed there):
 The checks are chip_smoke.py's, at smaller shapes.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from tpurag_torch.kernels.runtime import launch_counts
+from tpurag_torch.kernels.runtime import NEG_INF, launch_counts
 
 
 @pytest.fixture
@@ -363,3 +365,167 @@ def test_fused_bm25_kernel_takes_each_doc_once(cuda):
     want = bm25_topk_fused_ref(*args, 10, k=4, p_max=4)
     assert got[1].tolist() == want[1].tolist() == [[5, 2, 9, -1]]
     assert torch.equal(got[0], want[0])
+
+
+def _fuse_inputs(preset, gate, final_k, b, seed, kv=None, kk=None):
+    """tests/fuse_cases.py's legs on the card, max(b, 4) rows (its edge
+    rows need four; callers cut them): (legs, masses or None, preset)."""
+    import fuse_cases
+    from tpurag_torch.core.config import PRESETS
+
+    base = PRESETS[preset]
+    kv = base.vector_top_k if kv is None else kv
+    kk = base.keyword_top_k if kk is None else kk
+    final_k = {"below": kv + kk - 3, "equal": kv + kk,
+               "above": kv + kk + 5}.get(final_k, final_k)
+    p = fuse_cases.preset_for(base, "off" if gate == "off" else "on",
+                              final_k)
+    v_s, v_i, k_s, k_i, mass = fuse_cases.legs(
+        seed, max(b, 4), kv, kk, p.min_vector_score, p.min_keyword_coverage)
+    legs = [torch.from_numpy(x).cuda() for x in (v_s, v_i, k_s, k_i)]
+    if gate == "no keyword":
+        legs[2:] = None, None
+    return legs, (mass if gate == "on" else None), p
+
+
+def _same_triples(got, want):
+    assert got[0].shape == want[0].shape
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def _fuse_both(legs, mass, p):
+    """fuse_legs (one kernel launch) and fuse_legs_ref on the same CUDA
+    legs."""
+    from tpurag_torch.kernels.fusion import fuse_legs, fuse_legs_ref
+
+    before = launch_counts["fuse_legs"]
+    got = fuse_legs(*legs, mass, p)
+    want = fuse_legs_ref(*legs, mass, p)
+    torch.cuda.synchronize()
+    assert launch_counts["fuse_legs"] == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("b", [1, 512])
+@pytest.mark.parametrize("final", ["below", "equal", "above"])
+@pytest.mark.parametrize("gate", ["on", "off", "compat", "no keyword"])
+@pytest.mark.parametrize("preset", ["document", "code"])
+def test_fuse_kernel_matches_plain(cuda, preset, gate, final, b):
+    """The fusion kernel's triples (scores as bit patterns) against its
+    plain version: gate on, off (coverage 0), off by rank-compat scores
+    (no masses), no keyword leg; final_k below, at and above k_v + k_k;
+    the floor and gate edges, swapped-rank ties and empty rows of
+    tests/fuse_cases.py; B = 1 runs each edge row alone."""
+    legs, mass, p = _fuse_inputs(preset, gate, final, b, seed=b + len(gate))
+    if b > 1:
+        _same_triples(*_fuse_both(legs, mass, p))
+        return
+    for r in range(4):
+        one = [None if x is None else x[r:r + 1].contiguous() for x in legs]
+        _same_triples(*_fuse_both(one, None if mass is None
+                                  else mass[r:r + 1], p))
+
+
+def test_fuse_kernel_orders_equal_scores_by_id(cuda):
+    """Ids at swapped ranks reach equal fused scores (equal weights):
+    the smaller id first, as select_topk orders them."""
+    legs, mass, p = _fuse_inputs("document", "on", "equal", 64, seed=3)
+    v_i, k_i = legs[1].clone(), legs[3].clone()
+    for r in range(4, 64):  # ids 1000 + r and 2000 + r at ranks (1, 4), (4, 1)
+        v_i[r, 1], v_i[r, 4] = 2000 + r, 1000 + r
+        k_i[r, 4], k_i[r, 1] = 2000 + r, 1000 + r
+    legs[0][4:, :5] = 0.95
+    legs[2][4:, :5] = 1e6
+    legs[1], legs[3] = v_i, k_i
+    got, want = _fuse_both(legs, mass, p)
+    _same_triples(got, want)
+    ids = got[1].cpu().numpy()
+    for r in range(4, 64):
+        at = list(ids[r]).index(1000 + r)
+        assert ids[r, at + 1] == 2000 + r
+        assert got[0][r, at] == got[0][r, at + 1]
+
+
+@pytest.mark.parametrize("kv,kk,b", [(256, 256, 24), (257, 8, 24),
+                                     (8, 257, 24), (200, 3, 24),
+                                     (1000, 1500, 8), (2000, 1200, 4)])
+def test_fuse_kernel_takes_wide_legs(cuda, kv, kk, b):
+    """Legs past a warp take a block a row, each thread striding over
+    several lanes; past 3072 lanes the row's shared memory is over the
+    default 48 KiB and the launch opts in to more. Every width is one
+    launch, bit-identical to the plain version, and no plain call."""
+    from tpurag_torch.utils import tracing
+
+    legs, mass, p = _fuse_inputs("document", "on", 40, b, seed=kv + kk,
+                                 kv=kv, kk=kk)
+    tracing.clear()
+    _same_triples(*_fuse_both(legs, mass, p))
+    assert dict(tracing.counters) == {}
+
+
+def test_fuse_kernel_refuses_a_row_past_shared_memory(cuda):
+    """A row whose lanes do not fit one block's shared memory (16 bytes a
+    lane) raises ValueError, with nothing launched."""
+    import dataclasses
+
+    from tpurag_torch.core.config import PRESETS
+    from tpurag_torch.kernels.fusion import fuse_legs
+
+    kv = 20000
+    p = dataclasses.replace(PRESETS["document"], final_top_k=8)
+    v_s = torch.rand((1, kv), device="cuda")
+    v_i = torch.arange(kv, dtype=torch.int32, device="cuda")[None]
+    before = launch_counts["fuse_legs"]
+    with pytest.raises(ValueError, match="shared memory"):
+        fuse_legs(v_s, v_i, v_s, v_i, None, p)
+    assert launch_counts["fuse_legs"] == before
+
+
+@pytest.mark.parametrize("final_k", [0, 8])
+def test_fuse_kernel_on_rows_without_lanes_or_slots(cuda, final_k):
+    """No lanes at all (an empty dense leg, no keyword leg): all-empty
+    rows from one launch; final_k = 0: (B, 0) results and no launch."""
+    import dataclasses
+
+    from tpurag_torch.core.config import PRESETS
+    from tpurag_torch.kernels.fusion import fuse_legs, fuse_legs_ref
+
+    p = dataclasses.replace(PRESETS["document"], final_top_k=final_k)
+    for kv in (0, 8):
+        v_s = torch.rand((5, kv), device="cuda")
+        v_i = torch.arange(5 * kv, dtype=torch.int32,
+                           device="cuda").reshape(5, kv)
+        before = launch_counts["fuse_legs"]
+        got = fuse_legs(v_s, v_i, None, None, None, p)
+        torch.cuda.synchronize()
+        assert [x.shape for x in got] == [(5, final_k)] * 3
+        if final_k == 0:
+            assert launch_counts["fuse_legs"] == before
+            continue
+        assert launch_counts["fuse_legs"] == before + 1
+        if kv:
+            _same_triples(got, fuse_legs_ref(v_s, v_i, None, None, None, p))
+        else:
+            assert (got[0] == NEG_INF).all() and (got[1] == -1).all()
+            assert (got[2] == 0).all()
+
+
+def test_fuse_is_one_launch_and_at_most_one_copy(cuda):
+    """Under torch.profiler one fuse_legs call runs one device kernel (the
+    fusion kernel) and at most one host-to-device copy (the masses). The
+    profile runs in its own process (tools/fuse_anatomy.py --ops), which
+    ends without the teardown where CUPTI may hang after a session."""
+    import json
+    import subprocess
+    import sys
+
+    done = subprocess.run([sys.executable, "tools/fuse_anatomy.py", "--ops"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert done.returncode == 0, done.stderr[-2000:]
+    ops = json.loads(done.stdout.strip().splitlines()[-1])["ops"]
+    copies = [n for n in ops if "Memcpy" in n or "Memset" in n]
+    kernels = [n for n in ops if n not in copies]
+    assert len(kernels) == 1 and "fuse_rrf_kernel" in kernels[0], ops
+    assert len(copies) <= 1 and all("HtoD" in n for n in copies), ops

@@ -120,6 +120,23 @@ def test_profiled_search_records_the_span_tree(kb):
                                                   - assemble.start_ns)
 
 
+@pytest.mark.parametrize("traced", [False, True])
+def test_fuse_counts_each_plain_call_once(kb, traced):
+    def calls():
+        for b in (1, 3):
+            kb.search_batch([NARROW_QUERY] * b, vectors=_vectors(b))
+        kb.search_batch([NARROW_QUERY], vectors=_vectors(1), mode="vector")
+
+    launches = tracing.launch_counts["fuse_legs"]
+    if traced:
+        _profiled(calls)
+    else:
+        tracing.clear()
+        calls()
+    assert tracing.counters["fuse_plain"] == 2  # CPU tensors: no kernel
+    assert tracing.launch_counts["fuse_legs"] == launches
+
+
 @pytest.mark.parametrize("query,leg", [(WIDE_QUERY, "keyword.wide"),
                                        (NARROW_QUERY, "keyword.classed")])
 def test_keyword_span_names_the_scoring_path(kb, query, leg):
@@ -151,13 +168,13 @@ def test_chrome_trace_holds_each_range_on_the_records_clock(kb, tmp_path):
 
 
 def test_collection_inside_a_call_is_a_gc_span(kb, monkeypatch):
-    real = hybrid.rrf_fuse
+    real = hybrid.fuse_legs
 
     def collecting(*a, **kw):
         gc.collect()
         return real(*a, **kw)
 
-    monkeypatch.setattr(hybrid, "rrf_fuse", collecting)
+    monkeypatch.setattr(hybrid, "fuse_legs", collecting)
     _, recs, _ = _profiled(lambda: _hybrid(kb))
     by_id = {r.span_id: r for r in recs}
     full = [r for r in recs if r.name == "gc"

@@ -8,30 +8,23 @@ Mirrors hybridSearch (src/lib/hybrid-search.ts:275-362):
   3. reciprocal-rank fusion with preset weights / rrf_k / both-bonus;
   4. cut to final_top_k.
 
-Both legs and the fusion stay on the indexes' device; the only host
-transfer is the final (scores, ids, bits) triple.
+Both legs and the fusion stay on the indexes' device; the host sends
+only the gate's idf masses, and takes back the final (scores, ids, bits)
+triple. Steps 1-4 past the legs are ``kernels.fusion.fuse_legs``: on the
+card one kernel launch.
 
 Source bit layout in the returned mask: bit 0 = vector, bit 1 = keyword.
 """
 
 from __future__ import annotations
 
-import torch
-
 from tpurag_torch.core.config import HybridPreset
 from tpurag_torch.index.dense import DenseIndex
 from tpurag_torch.index.inverted import InvertedIndex
-from tpurag_torch.kernels.fusion import rrf_fuse
-from tpurag_torch.kernels.runtime import NEG_INF
+from tpurag_torch.kernels.fusion import fuse_legs
 from tpurag_torch.utils import tracing
 
 SOURCE_BITS = ("vector", "keyword")
-
-
-def apply_min_score(scores, ids, min_score: float):
-    """Invalidate candidates below the cosine threshold (pre-RRF filter)."""
-    keep = scores >= min_score
-    return torch.where(keep, scores, NEG_INF), torch.where(keep, ids, -1)
 
 
 def hybrid_search(
@@ -54,36 +47,22 @@ def hybrid_search(
     v_scores, v_ids = (dense_search or dense.search)(query_vecs,
                                                      preset.vector_top_k)
     keyword = inverted is not None and len(inverted) > 0
+    # Keyword index unavailable -> vector-only degradation (reference:
+    # hybrid-search.ts:322-330): fuse_legs takes no keyword leg.
+    k_scores = k_ids = None
     if keyword:
         k_scores, k_ids = inverted.search(query_texts, preset.keyword_top_k,
                                           as_device=True)
 
     # Everything past the two legs is one span: the floor, the gate, RRF.
     with tracing.span("fuse"):
-        v_scores, v_ids = apply_min_score(v_scores, v_ids,
-                                          preset.min_vector_score)
-        if not keyword:
-            # Keyword index unavailable -> vector-only degradation
-            # (reference: hybrid-search.ts:322-330).
-            k_ids = torch.full((v_ids.shape[0], preset.keyword_top_k), -1,
-                               dtype=torch.int32, device=v_ids.device)
-        elif (preset.min_keyword_coverage > 0.0
+        mass = None
+        if (keyword and preset.min_keyword_coverage > 0.0
                 and not inverted.config.rank_compat_scores):
             # Keyword-leg confidence gate (see HybridPreset); rank-compat
             # pseudo-scores carry no match mass, so it gates true BM25 only.
-            mass = torch.as_tensor(inverted.query_idf_mass(query_texts),
-                                   device=k_scores.device)
-            best = k_scores.amax(dim=1, keepdim=True)
-            confident = best >= preset.min_keyword_coverage * mass[:, None]
-            k_ids = torch.where(confident, k_ids, -1)
-
-        return rrf_fuse(
-            (v_ids, k_ids),
-            weights=(preset.vector_weight, preset.keyword_weight),
-            final_k=preset.final_top_k,
-            rrf_k=preset.rrf_k,
-            both_bonus=preset.both_bonus,
-        )
+            mass = inverted.query_idf_mass(query_texts)
+        return fuse_legs(v_scores, v_ids, k_scores, k_ids, mass, preset)
 
 
 def decode_bits(bits: int, names: tuple[str, ...] = SOURCE_BITS) -> tuple[str, ...]:

@@ -65,7 +65,10 @@ Counters
   ``InvertedIndex.add_batch`` indexed through the native batched call
   and through ``InvertedIndex.add``, one at a time;
 - ``compact_ns``, ``compactions``: ``InvertedIndex.compact``, the
-  keyword index's rebuild onto the device (a KB's first search runs one).
+  keyword index's rebuild onto the device (a KB's first search runs one);
+- ``fuse_plain``: the hybrid fusion calls (``kernels.fusion.fuse_legs``)
+  that took its plain version, on CPU tensors; on the card each launches
+  the kernel, counted in ``launch_counts["fuse_legs"]``.
 
 Kernel launches are counted by wrapper name in
 ``kernels.runtime.launch_counts``, re-exported here; it is the only
