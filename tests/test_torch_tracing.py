@@ -226,16 +226,40 @@ def test_session_ordinal_separates_sessions(kb):
                if r.call_id == roots[0].call_id)
 
 
+class _Noop:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
 def test_disabled_span_costs_under_a_microsecond():
+    """With no profiler session a span is the shared no-op and keeps no
+    record. Its cost is held to a bare `with` of a no-op context manager
+    timed in the same process, the runs interleaved, so that the bound
+    measures the span and not how loaded the machine is (under 2.5x on an
+    idle host, where the span takes about half a microsecond)."""
     assert not torch.autograd.profiler._is_profiler_enabled
+    assert tracing.span("x") is tracing._OFF
+    noop = _Noop()
 
     def entered():
         with tracing.span("x"):
             pass
 
+    def bare():
+        with noop:
+            pass
+
     tracing.clear()
-    per = min(timeit.repeat(entered, number=20000, repeat=5)) / 20000
-    assert per < 1e-6, per
+    span_s, bare_s = [], []
+    for _ in range(7):
+        span_s.append(timeit.timeit(entered, number=20000))
+        bare_s.append(timeit.timeit(bare, number=20000))
+    assert min(span_s) <= 4 * min(bare_s), (min(span_s), min(bare_s))
     assert tracing.spans() == []
 
 

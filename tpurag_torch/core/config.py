@@ -95,10 +95,6 @@ class BM25Config:
                         # T*head_m lanes but is APPROXIMATE — fails on
                         # flat-impact corpora). 0 (default) = exact.
     exact_scoring: bool = False  # force full postings even if head_m set
-    width_classes: bool = True   # group queries by their own postings-width
-                                 # bucket and run each class at its natural
-                                 # width (exact; avoids padding every query
-                                 # to the batch-max df)
     width_ladder: tuple = (64, 256, 1024, 2048)
     # Query width classes round UP to this ladder (exact — storage buckets
     # keep their natural pow2 width; only the kernel's scan width pads).
@@ -213,8 +209,6 @@ class DeviceConfig:
 
     dtype: str = "bfloat16"       # embedding storage dtype in HBM
     dim: int = 1024               # lightrag-service/main.py:188 (dim=1024)
-    query_tile: int = 128         # Pallas tile over the query-batch axis
-    chunk_tile: int = 2048        # Pallas tile over the corpus axis
     min_capacity: int = 4096      # initial corpus capacity (grows by doubling)
 
 

@@ -13,8 +13,10 @@ Device layout (same as the JAX package):
   term's doc-sorted postings (+ build-time precomputed BM25 impacts)
   occupy one row of the (n_terms_w + 1, w) matrix for its power-of-two
   width bucket, padded with doc=2^30 / impact=0; row 0 is the pad row;
-- queries are width-classed: each query runs at the max bucket width of
-  its own terms, rounded up to BM25Config.width_ladder;
+- queries are width-classed: a search resolves each query's terms
+  against a segment once (``InvertedIndex._resolve``) and one routine
+  (``_classes``) groups the resolved rows, each query running at the max
+  bucket width of its own terms, rounded up to BM25Config.width_ladder;
 - scoring tail = merge + segment sum + top-k of every class of a search in
   one call that reads the bucket rows' live lanes itself
   (kernels/bm25_merge.merge_segsum_topk_classes, K2: one CUDA launch per
@@ -116,35 +118,64 @@ def full_cbits(w: int, t: int, cbits: int) -> int:
     return 0
 
 
-def wide_flow(n_classes, w_classes, h: int, kk: int, wn_max: int,
-              layout: "_Layout", cbits: int):
+def _front(slots, keep):
+    """The slots `keep` marks, moved to the front of their row in order
+    (the others emptied to 0), and each row's count of them."""
+    front = (np.arange(len(keep))[:, None],
+             np.argsort(~keep, axis=1, kind="stable"))
+    kept = keep[front]
+    return [x[front] * kept for x in slots], kept.sum(axis=1)
+
+
+def _classes(slots, counts, sel, ladder=()):
+    """Group resolved query rows into classes of one key (p_max, t_max).
+
+    slots: (bucketw, rowid, live, idf) (n, t) host arrays as
+    ``InvertedIndex._resolve`` or ``_front`` give them; counts: (n,) each
+    row's slots; sel: (n,) int64, each row's row in the output. p_max is
+    the row's largest bucket width (16 with none) rounded up `ladder`,
+    t_max the next power of two of its count. Returns [(p_max, t_max,
+    sel, bucketw, rowid, live, idf)] with (g, t_max) arrays, classes in
+    the order of their first row and members in row order."""
+    groups: dict[tuple[int, int], list[int]] = {}
+    for i, (p, n) in enumerate(zip(
+            np.maximum(slots[0].max(axis=1), 16).tolist(), counts.tolist())):
+        key = (min((w for w in ladder if w >= p), default=p), _next_pow2(n))
+        groups.setdefault(key, []).append(i)
+    out = []
+    for (p, t), members in groups.items():
+        m = np.asarray(members, np.int64)
+        out.append((p, t, sel[m], *(x[m, :t] for x in slots)))
+    return out
+
+
+def wide_flow(n_classes, w_classes, h: int, kk: int, layout: "_Layout",
+              cbits: int):
     """Device flow for queries holding wide terms.
 
-    n_classes / w_classes: lists of (p_max, t, sel, bucketw, rowid, live,
-    idf), sel a (g,) host int array of positions in the h-row output and
-    the bucketw/rowid/live/idf (g, t) host arrays of the class's members.
-    One merge_segsum_full_classes call (one K3 launch) merges every class
-    straight from the bucket matrices: the narrow classes into one
-    (h, wn_max) full-row buffer, each wide class into rows of its own; one
-    combine_topk_classes call (one K4 launch) joins every wide class with
-    its members' narrow rows, each member reading only its own narrow
-    class's width. Returns (h, kk) scores / ids."""
+    n_classes / w_classes: the narrow and the wide side's classes of the
+    h rows (``_classes``). One merge_segsum_full_classes call (one K3
+    launch) merges every class straight from the bucket matrices: the
+    narrow classes into one (h, widest narrow class) full-row buffer, each
+    wide class into rows of its own; one combine_topk_classes call (one K4
+    launch) joins every wide class with its members' narrow rows, each
+    member reading only its own narrow class's width. Returns (h, kk)
+    scores / ids."""
     def spec(cls):
-        p_max, t, sel, bucketw, rowid, live, idf = cls
-        return (p_max, t, full_cbits(t * p_max, t, cbits), sel, bucketw,
-                rowid, live, idf)
+        p_max, t, *rest = cls
+        return (p_max, t, full_cbits(t * p_max, t, cbits), *rest)
 
-    n_val, n_doc, wides = merge_segsum_full_classes(
-        layout.widths, layout.mats, [spec(c) for c in n_classes],
-        [spec(c) for c in w_classes], h, wn_max)
     n_width = np.zeros(h, np.int64)
     for p_max, t, sel, *_ in n_classes:
         n_width[sel] = p_max * t
+    n_val, n_doc, wides = merge_segsum_full_classes(
+        layout.widths, layout.mats, [spec(c) for c in n_classes],
+        [spec(c) for c in w_classes], h, int(n_width.max()))
     classes = [(w_seg, w_doc, cls[2], n_width[cls[2]])
                for (w_seg, w_doc), cls in zip(wides, w_classes)]
     # One doc spans at most max narrow t + wide t lanes across the two
     # merged sides: the window of the plain version's segment sum.
-    window = max(2, max((c[1] for c in n_classes), default=0)
+    window = max(2, max(c[1] for c in n_classes)
                  + max(c[1] for c in w_classes))
     return combine_topk_classes(n_val, n_doc, classes, k=kk, window=window)
 
@@ -430,21 +461,24 @@ class InvertedIndex:
 
     # -- query ---------------------------------------------------------------
 
+    def _idf(self, tid: int | None) -> float:
+        """Okapi idf of term `tid` (None: out of vocabulary, df 0) in double
+        precision, one math.log a term as the JAX package takes it. df
+        counts dead postings until compaction: it is clamped to the live
+        doc count so the idf stays positive."""
+        n = max(self.n_docs, 1)
+        df = 0 if tid is None else min(self._df(tid), n)
+        return math.log(1.0 + (n - df + 0.5) / (df + 0.5))
+
     def query_idf_mass(self, queries: list[str]) -> np.ndarray:
         """Per-query total idf mass: sum of idf over ALL query tokens,
         including out-of-vocabulary ones (df=0 -> the Okapi maximum). The
         hybrid engine's keyword-coverage gate thresholds the best BM25
         score against it (engine/hybrid.py)."""
-        df_live = max(self.n_docs, 1)
         out = np.zeros(len(queries), np.float32)
         for qi, q in enumerate(queries):
-            mass = 0.0
-            for tok in tokenize_query(q):
-                tid = self.vocab.get(tok)
-                df = (0 if tid is None
-                      else min(self._df(tid), df_live))
-                mass += math.log(1.0 + (df_live - df + 0.5) / (df + 0.5))
-            out[qi] = mass
+            out[qi] = sum(self._idf(self.vocab.get(tok))
+                          for tok in tokenize_query(q))
         return out
 
     def search(self, queries: list[str], k: int, as_device: bool = False):
@@ -457,169 +491,85 @@ class InvertedIndex:
             bqueries = [tokenize_query(q) for q in queries]
             return self.search_tokens(bqueries, k, as_device=as_device)
 
+    def _resolve(self, rows: list[list[int]], layout: _Layout):
+        """Each query's term slots in `layout`: (lens, (bucketw, rowid,
+        live, idf)), lens the rows' term counts and the slots (len(rows),
+        t) host arrays with t the next power of two of the longest row,
+        slot j the row's j-th term: its bucket width (0 = empty: a term
+        absent from the layout, or no term), matrix row (+1 past the pad
+        row), postings and fp32 idf."""
+        lens = np.fromiter(map(len, rows), np.int64, len(rows))
+        t = _next_pow2(int(lens.max()))
+        tid = np.full((len(rows), t), -1, np.int64)
+        tid[np.arange(t) < lens[:, None]] = np.fromiter(
+            itertools.chain.from_iterable(rows), np.int64, int(lens.sum()))
+        tb = layout.term_bucket
+        v = len(tb)  # terms born after this layout was built are absent
+        ok = (tid >= 0) & (tid < v)
+        safe = np.where(ok, tid, 0)
+        ok &= tb[safe] > 0
+        terms = np.unique(tid[ok])
+        idf = np.zeros(tid.shape, np.float32)
+        idf[ok] = np.array([self._idf(x) for x in terms.tolist()],
+                           np.float32)[np.searchsorted(terms, tid[ok])]
+        return lens, (tb[safe] * ok, (layout.term_row[safe] + 1) * ok,
+                      layout.term_len[safe] * ok, idf)
+
     def _score(self, rows: list[list[int]], kk: int, layout: _Layout):
-        """Score one segment: width-class the queries against this
-        layout's buckets and run the fused scoring tail per class.
-        Queries holding wide terms (bucket width > wide_term_width) split
-        into narrow + wide groups combined exactly (_score_wide)."""
+        """Score one segment: resolve the queries' terms against this
+        layout once and class them (``_classes``). Queries without wide
+        terms (bucket width > wide_term_width) take one
+        merge_segsum_topk_classes call (one K2 launch), classes past its
+        MAX_MERGE_LANES segsum_topk_candidates; queries holding wide terms
+        split into a narrow and a wide side combined exactly
+        (``wide_flow``)."""
         bsz = len(rows)
         scores = torch.full((bsz, kk), NEG_INF, dtype=torch.float32,
                             device=self.device)
         ids = torch.full((bsz, kk), -1, dtype=torch.int32, device=self.device)
-        if not layout.mats:
+        if not layout.mats or not bsz:
             return scores, ids
-        tb = layout.term_bucket
-        v = len(tb)  # terms born after this layout was built are absent
-        wide_w = self.config.wide_term_width
-        wide_rows = [[t for t in tids if t < v and tb[t] > wide_w]
-                     for tids in rows]
-        hard = [bi for bi in range(bsz) if wide_rows[bi]]
-        if not hard:
-            return self._score_classed(rows, kk, layout, scores, ids,
-                                       list(range(bsz)))
-        simple = [bi for bi in range(bsz) if not wide_rows[bi]]
-        if simple:
-            scores, ids = self._score_classed(
-                [rows[bi] for bi in simple], kk, layout, scores, ids, simple)
-        narrow_rows = [[t for t in rows[bi] if t < v and 0 < tb[t] <= wide_w]
-                       for bi in hard]
-        s, i = self._score_wide(narrow_rows, [wide_rows[bi] for bi in hard],
-                                kk, layout)
-        sel = torch.as_tensor(hard, dtype=torch.long, device=self.device)
-        scores[sel] = s[:, :kk]
-        ids[sel] = i[:, :kk]
-        return scores, ids
-
-    def _slot_arrays(self, rows: list[list[int]], t: int,
-                     layout: _Layout):
-        """(bucketw, rowid, live, idf): (len(rows), t) host arrays of each
-        query's term slots in this layout (bucket width, 0 = empty, for a
-        term absent from it; matrix row, +1 past the pad row; postings;
-        idf), t >= the longest row."""
-        n = len(rows)
-        lens = np.fromiter(map(len, rows), np.int64, n)
-        tid = np.full((n, t), -1, np.int64)
-        pos = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
-                                                     lens)
-        tid[np.repeat(np.arange(n), lens), pos] = np.fromiter(
-            itertools.chain.from_iterable(rows), np.int64, len(pos))
-        tb = layout.term_bucket
-        v = len(tb)  # terms born after this layout was built are absent
-        safe = np.where((tid >= 0) & (tid < v), tid, 0)
-        ok = (tid >= 0) & (tid < v) & (tb[safe] > 0)
-        # df counts dead postings until compaction; clamp to the live doc
-        # count so Okapi idf stays positive (one math.log per term, as the
-        # JAX package takes it).
-        df_live = max(self.n_docs, 1)
-        terms = np.unique(tid[ok])
-        idf_t = np.array(
-            [math.log(1.0 + (df_live - df + 0.5) / (df + 0.5)) for df in
-             (min(self._df(x), df_live) for x in terms)],
-            np.float32)
-        idf = np.zeros((n, t), np.float32)
-        idf[ok] = idf_t[np.searchsorted(terms, tid[ok])]
-        return (np.where(ok, tb[safe], 0).astype(np.int32),
-                np.where(ok, layout.term_row[safe] + 1, 0).astype(np.int32),
-                np.where(ok, layout.term_len[safe], 0).astype(np.int32), idf)
-
-    @tracing.spanned("keyword.classed")
-    def _score_classed(self, rows: list[list[int]], kk: int,
-                       layout: _Layout, scores, ids, members_map):
-        """The classed path for queries without wide terms: every class in
-        one merge_segsum_topk_classes call (one K2 launch), each query's
-        top-kk written into its members_map row of (scores, ids); classes
-        past the kernel's MAX_MERGE_LANES take segsum_topk_candidates."""
-        bsz = len(rows)
-        ladder = tuple(sorted(self.config.width_ladder or ()))
-        tb = layout.term_bucket
-        v = len(tb)
-
-        def row_pmax(tids):
-            p = max((int(tb[t]) for t in tids if t < v and tb[t] > 0),
-                    default=16)
-            for w in ladder:
-                if w >= p:
-                    return w
-            return p
-
-        if self.config.width_classes and bsz > 1:
-            groups: dict[tuple[int, int], list[int]] = {}
-            for bi, tids in enumerate(rows):
-                key = (row_pmax(tids), _next_pow2(max(len(tids), 1)))
-                groups.setdefault(key, []).append(bi)
-        else:
-            groups = {(max((row_pmax(r) for r in rows), default=16),
-                       _next_pow2(max((len(r) for r in rows), default=1)))
-                      : list(range(bsz))}
-
+        lens, slots = self._resolve(rows, layout)
+        wide = slots[0] > self.config.wide_term_width
+        hard = wide.any(axis=1)
+        ladder = self.config.width_ladder
         cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
-        slots = self._slot_arrays(rows, max(t for _, t in groups), layout)
-        out_rows = np.asarray(members_map, np.int64)
-        fused, sorted_ = [], []
-        for (p_max, t_max), members in groups.items():
-            m = np.asarray(members, np.int64)
-            spec = (p_max, t_max, cbits, out_rows[m],
-                    *(x[m, :t_max] for x in slots))
-            (fused if merge_ok(t_max * p_max) else sorted_).append(spec)
-        merge_segsum_topk_classes(layout.widths, layout.mats, fused, scores,
-                                  ids)
-        for p_max, t_max, _, sel, bucketw, rowid, live, idf in sorted_:
-            doc, con = slot_rows(layout.widths, layout.mats, bucketw, rowid,
-                                 live, idf, p_max, t_max)
-            # A class can't yield more candidates than it has lanes.
-            s, i = segsum_topk_candidates(doc, con,
-                                          k=min(kk, t_max * p_max))
+        if not hard.all():
+            with tracing.span("keyword.classed"):
+                simple = np.flatnonzero(~hard)
+                fused, sorted_ = [], []
+                for p_max, t_max, *rest in _classes(
+                        [x[simple] for x in slots], lens[simple], simple,
+                        ladder):
+                    (fused if merge_ok(t_max * p_max) else sorted_).append(
+                        (p_max, t_max, cbits, *rest))
+                merge_segsum_topk_classes(layout.widths, layout.mats, fused,
+                                          scores, ids)
+                for p_max, t_max, _, sel, bucketw, rowid, live, idf in sorted_:
+                    doc, con = slot_rows(layout.widths, layout.mats, bucketw,
+                                         rowid, live, idf, p_max, t_max)
+                    # A class can't yield more candidates than it has lanes.
+                    s, i = segsum_topk_candidates(doc, con,
+                                                  k=min(kk, t_max * p_max))
+                    sel = torch.as_tensor(sel, device=self.device)
+                    scores[sel, :s.shape[1]] = s
+                    ids[sel, :i.shape[1]] = i
+        if hard.any():
+            sel = np.flatnonzero(hard)
+            with tracing.span("keyword.wide"):
+                # Each term runs at its own bucket width: a df-20k term
+                # does not pad the query's narrow terms to 32768 lanes.
+                slots, wide = [x[sel] for x in slots], wide[sel]
+                at = np.arange(len(sel))  # rows of wide_flow's output
+                s, i = wide_flow(
+                    _classes(*_front(slots, (slots[0] > 0) & ~wide), at,
+                             ladder),
+                    _classes(*_front(slots, wide), at), len(sel), kk, layout,
+                    cbits)
             sel = torch.as_tensor(sel, device=self.device)
-            scores[sel, :s.shape[1]] = s
-            ids[sel, :i.shape[1]] = i
+            scores[sel] = s[:, :kk]
+            ids[sel] = i[:, :kk]
         return scores, ids
-
-    @tracing.spanned("keyword.wide")
-    def _score_wide(self, narrow_rows: list[list[int]],
-                    wide_rows: list[list[int]], kk: int, layout: _Layout):
-        """Queries with wide terms. Narrow terms give full doc-sorted
-        segsummed rows per narrow class, wide terms the same per (own
-        width, term count) wide class, all in one K3 launch, and one
-        combine_topk_classes call adds the partial sums exactly into the
-        top-kk. Each term runs at its own bucket width: a df-20k term does
-        not pad the query's narrow terms to 32768 lanes."""
-        h = len(narrow_rows)
-        ladder = tuple(sorted(self.config.width_ladder or ()))
-        tb = layout.term_bucket
-        cbits = packed_cbits(len(self.doc_len), self.config.packed_merge)
-
-        def row_pmax_n(tids):
-            p = max((int(tb[t]) for t in tids), default=16)
-            for w in ladder:
-                if w >= p:
-                    return w
-            return p
-
-        def class_list(groups, rows_of):
-            slots = self._slot_arrays(rows_of, max(t for _, t in groups),
-                                      layout)
-            out = []
-            for (p_max, t_max), members in groups.items():
-                m = np.asarray(members, np.int64)
-                out.append((p_max, t_max, m,
-                            *(x[m, :t_max] for x in slots)))
-            return out
-
-        # Narrow side: full rows scattered into one (h, wn_max) buffer so
-        # each wide class selects its members' rows directly.
-        n_groups: dict[tuple[int, int], list[int]] = {}
-        for hi, tids in enumerate(narrow_rows):
-            key = (row_pmax_n(tids), _next_pow2(max(len(tids), 1)))
-            n_groups.setdefault(key, []).append(hi)
-        wn_max = max(p * t for (p, t) in n_groups)
-        w_groups: dict[tuple[int, int], list[int]] = {}
-        for hi, tids in enumerate(wide_rows):
-            key = (max(int(tb[t]) for t in tids),
-                   _next_pow2(max(len(tids), 1)))
-            w_groups.setdefault(key, []).append(hi)
-        return wide_flow(class_list(n_groups, narrow_rows),
-                         class_list(w_groups, wide_rows), h=h, kk=kk,
-                         wn_max=wn_max, layout=layout, cbits=cbits)
 
     def search_tokens(self, token_lists: list[list[str]], k: int,
                       as_device: bool = False):

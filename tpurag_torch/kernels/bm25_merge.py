@@ -29,7 +29,10 @@ instead, (B, t*p) doc / con of t P-blocks (invalid lanes parked at doc
 2^30 with contribution 0, each block doc-ascending; merge_segsum_topk's
 odd blocks DESCENDING, the Pallas kernel's input) and run the same
 kernels on them through a one-class table. K3's t == 1 rows come back as
-(where(doc < 2^30, con, NEG_INF), doc) without a launch.
+(where(doc < 2^30, con, NEG_INF), doc) without a launch. No path of the
+port calls these two; they stay because they take the JAX functions'
+arguments, so the parity tests and chip_smoke.py's row checks hold the
+classed kernels to the Pallas kernels through them.
 
 ``bm25_topk_fused`` (K2') keeps the TPU kernel's form: the bitonic
 network of T gathered CSR windows (odd terms flipped), the T-window sum

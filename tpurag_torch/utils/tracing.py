@@ -26,11 +26,12 @@ The spans of one search, from the facade down (``KnowledgeBase``):
                             and fusion enqueued
   ``dense``                 ``DenseIndex.search`` or the IVF leg: the
                             query upload and the dense kernels
-  ``keyword``               ``InvertedIndex.search``: tokenizing and
-                            scoring
+  ``keyword``               ``InvertedIndex.search``: tokenizing,
+                            resolving the terms against each segment
+                            once, scoring
    ``keyword.compact``      the lazy compaction a search may run first
-   ``keyword.classed``      queries without wide terms: slot arrays,
-                            width classes, the merge + top-k kernel
+   ``keyword.classed``      queries without wide terms: width classes,
+                            the merge + top-k kernel
    ``keyword.wide``         queries with wide terms: classes, the
                             full-row merge and the combine kernels
   ``fuse``                  score floor, keyword gate (the queries' idf
