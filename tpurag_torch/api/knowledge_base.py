@@ -12,6 +12,7 @@ package's, so a KB saved by either package loads in the other.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import pathlib
 import threading
@@ -25,7 +26,7 @@ import torch
 from tpurag_torch.core.chunkstore import ChunkStore
 from tpurag_torch.core.config import EngineConfig, HybridPreset, PRESETS
 from tpurag_torch.core.types import Chunk, SearchResponse, SearchResult
-from tpurag_torch.engine.hybrid import decode_bits, hybrid_search
+from tpurag_torch.engine.hybrid import SOURCE_BITS, decode_bits, hybrid_search
 from tpurag_torch.index.dense import DenseIndex, l2_normalize, not_ported
 from tpurag_torch.index.highlighter import highlight_batch
 from tpurag_torch.index.inverted import InvertedIndex
@@ -40,6 +41,11 @@ from tpurag_torch.utils import tracing
 from tpurag_torch.utils.locks import RWLock
 
 Embedder = Callable[[list[str]], np.ndarray]
+
+# A result's found_in for each value of its source bits (decode_bits
+# reads no higher bit), shared by every result.
+_SOURCE_MASK = (1 << len(SOURCE_BITS)) - 1
+_FOUND_IN = tuple(decode_bits(v) for v in range(_SOURCE_MASK + 1))
 
 
 class KnowledgeBase:
@@ -241,37 +247,38 @@ class KnowledgeBase:
 
     def _assemble(self, queries: list[str], scores, ids, bits,
                   asm=None) -> list[SearchResponse]:
-        """Every query's response; the keyword-found results' highlights
-        in one batched call (index/highlighter.highlight_batch). asm: the
-        profiled `assemble` span to count into, or None."""
+        """Every query's response, read from the chunk store's columns
+        (one conversion of the host triple a call); the keyword-found
+        results' highlights in one batched call
+        (index/highlighter.highlight_batch). asm: the profiled
+        `assemble` span to count into, or None."""
+        # NaN scores pass, as `s <= NEG_INF / 2` lets them.
+        keep = (ids >= 0) & ~(scores <= NEG_INF / 2)
+        kept = ids[keep].tolist()
+        rows = zip(kept, scores[keep].tolist(),
+                   (bits[keep] & _SOURCE_MASK).tolist(),
+                   self.chunks.result_fields(kept))
         out, marked, texts, which, qtoks = [], [], [], [], []
-        for b, query in enumerate(queries):
+        for b, (query, n) in enumerate(zip(queries, keep.sum(1).tolist())):
             qtoks.append(tokenize_query(query))
-            results = []
-            for s, i, bt in zip(scores[b], ids[b], bits[b]):
-                i = int(i)
-                if i < 0 or s <= NEG_INF / 2:
+            results, by_source = [], {}
+            for i, s, bt, fields in itertools.islice(rows, n):
+                if fields is None:  # deleted since the search ran
                     continue
-                c = self.chunks[i]
-                if c.metadata.get("deleted"):
-                    continue
-                found_in = decode_bits(int(bt))
-                r = SearchResult(
-                    chunk_id=i, score=float(s), text=c.text,
-                    doc_name=c.doc_name, source=c.source, found_in=found_in,
-                    metadata=c.metadata)
+                text, doc_name, source, metadata = fields
+                found_in = _FOUND_IN[bt]
+                r = SearchResult(i, s, text, doc_name, source, found_in, "",
+                                 metadata)
                 if "keyword" in found_in:
                     marked.append(r)
-                    texts.append(c.text)
+                    texts.append(text)
                     which.append(b)
                 results.append(r)
-            stats = {"total": len(results), "by_source": {}}
-            for r in results:
-                for src in (r.found_in or (r.source,)):
-                    stats["by_source"][src] = stats["by_source"].get(
-                        src, 0) + 1
-            out.append(SearchResponse(results=results, query=query,
-                                      stats=stats))
+                for src in found_in or (source,):
+                    by_source[src] = by_source.get(src, 0) + 1
+            out.append(SearchResponse(
+                results, query, {"total": len(results),
+                                 "by_source": by_source}))
         t0 = time.perf_counter_ns()
         strings, fallbacks = highlight_batch(texts, qtoks, which)
         for r, h in zip(marked, strings):

@@ -82,6 +82,24 @@ class ChunkStore:
                      chunk_index=self._chunk_index[i],
                      source=self._sources[i], metadata=md)
 
+    def result_fields(self, ids) -> Iterator[Optional[tuple]]:
+        """For each id in turn, (text, doc_name, source, metadata) as a
+        search result carries them, straight from the columns, or None
+        for a deleted chunk. metadata is a new dict per id, equal to the
+        view's: the sparse metadata, then ``indexed_at``. A generator, so
+        that each tuple dies as soon as it is read and no call's worth of
+        them lives on into the collector's older generations."""
+        texts, names, sources = self.texts, self._doc_names, self._sources
+        meta, at, deleted = self._meta, self._indexed_at, self._deleted
+        for i in ids:
+            if i in deleted:
+                yield None
+            elif i in meta:
+                yield (texts[i], names[i], sources[i],
+                       {**meta[i], "indexed_at": at[i]})
+            else:
+                yield texts[i], names[i], sources[i], {"indexed_at": at[i]}
+
     def __getitem__(self, i):
         if isinstance(i, slice):
             return [self._materialize(j)

@@ -39,8 +39,8 @@ The spans of one search, from the facade down (``KnowledgeBase``):
  ``finalize``               the host half: ``fetch`` then ``assemble``
   ``fetch``                 the host copy of the fused (scores, ids,
                             bits): the host waits on the device here
-  ``assemble``              every query's response: chunk lookups and
-                            highlighting; attrs ``results``,
+  ``assemble``              every query's response: the chunk store's
+                            columns read, highlighting; attrs ``results``,
                             ``highlights``, ``highlight_fallbacks`` (the
                             highlights that took the Python version) and
                             ``highlight_ns`` (the batched highlighter's
